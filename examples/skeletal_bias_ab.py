@@ -12,7 +12,7 @@ monitor=train, non-finite guard on — differing only in the bias.
 
 Measured (round 4, defaults below, one arm per invocation on the 1-CPU
 host, ~3.5 h each): biased (-3) train token accuracy 0.7817 vs the
-unbiased control's 0.0 (BASELINE.md round-4 table).
+unbiased control's 0.0.
 
 Usage:
   JAX_PLATFORMS=cpu python examples/skeletal_bias_ab.py {biased|unbiased}
@@ -29,16 +29,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from mgr_tpu.core.platform import apply_env_platform
-
-apply_env_platform()
-
-from mgr_tpu.core import campaign
-
-# No-op under JAX_PLATFORMS=cpu (the intended backend); defers to any
-# running chip campaign otherwise.
-campaign.own_chip_or_exit("skeletal_bias_ab")
 
 from mgr_tpu.core import config as cfglib
 from mgr_tpu.data import datasets, synthetic

@@ -1,4 +1,4 @@
-"""mgr_tpu — TPU-native multimodal gesture recognition framework.
+"""mgr_tpu — multimodal gesture recognition framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 AlexGidiotis/Multimodal-Gesture-Recognition-with-LSTMs-and-CTC
@@ -6,8 +6,8 @@ AlexGidiotis/Multimodal-Gesture-Recognition-with-LSTMs-and-CTC
 five BLSTM+CTC pipelines: speech, skeletal, RGB video, early fusion,
 late multimodal fusion).
 
-Design principles (TPU-first, not a port):
-  * All hot compute is batched matmul-shaped for the MXU: LSTM input
+Design principles (not a port):
+  * All hot compute is batched matmul-shaped: LSTM input
     projections are hoisted out of the recurrence into one large
     (B*T, F) @ (F, 4H) matmul; the serial scan only carries the
     (B, H) @ (H, 4H) recurrent step.

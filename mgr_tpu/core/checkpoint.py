@@ -1,4 +1,4 @@
-"""Checkpoint store: msgpack pytrees + JSON config, best/latest slots.
+"""Checkpoint store: NumPy ``.npz`` pytrees + JSON config, best/latest slots.
 
 Replaces the reference's dual Keras mechanisms — best-val ModelCheckpoint
 h5 (speech_lstm_ctc_words.py:172-178) and the generator's epoch-end
@@ -7,12 +7,16 @@ resume, decode, and the late-fusion transfer stage
 (multimodal.py:68-85).
 
 Layout inside a workdir:
-    <stamp>_config.json     pipeline config (reference saved model JSON)
-    <stamp>_latest.msgpack  every-epoch state  (step, params, opt_state)
-    <stamp>_best.msgpack    best-val-loss state
-Writes are atomic (tmp + rename) so preemption mid-save never corrupts a
-slot — the first-class failure-recovery path the reference lacked
-(SURVEY.md §5.3).
+    <stamp>_config.json   pipeline config (reference saved model JSON)
+    <stamp>_latest.npz    every-epoch state  (step, params, opt_state)
+    <stamp>_best.npz      best-val-loss state
+Each ``.npz`` holds one array per pytree leaf, keyed by its tree path
+(``jax.tree_util.keystr``), and restores into a template built from the
+same config. Leaves NumPy cannot name (bfloat16 and other ml_dtypes) are
+stored as same-width unsigned ints with their dtype recorded; PRNG keys
+as their key data. Writes are atomic (tmp + rename) so preemption
+mid-save never corrupts a slot — the first-class failure-recovery path
+the reference lacked (SURVEY.md §5.3).
 """
 
 from __future__ import annotations
@@ -20,16 +24,19 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any
+from typing import Any, Dict
 
 import jax
-from flax import serialization
+import numpy as np
 
 from mgr_tpu.core.config import PipelineConfig
 
+_DTYPES_KEY = "__dtypes__"
+_KEY_MARK = "prng_key"
+
 
 def _path(workdir: str, stamp: str, slot: str) -> str:
-    return os.path.join(workdir, f"{stamp}_{slot}.msgpack")
+    return os.path.join(workdir, f"{stamp}_{slot}.npz")
 
 
 def save_config(workdir: str, stamp: str, cfg: PipelineConfig) -> None:
@@ -66,6 +73,68 @@ def load_fit_meta(workdir: str, stamp: str) -> dict:
         return {}
 
 
+def _flatten(state: Any) -> Dict[str, np.ndarray]:
+    """Tree-path-keyed host arrays, plus the dtype record for leaves
+    stored under another dtype."""
+    arrays: Dict[str, np.ndarray] = {}
+    dtypes: Dict[str, str] = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(state)[0]:
+        key = jax.tree_util.keystr(path)
+        if jax.dtypes.issubdtype(getattr(leaf, "dtype", None),
+                                 jax.dtypes.prng_key):
+            leaf = jax.random.key_data(leaf)
+            dtypes[key] = _KEY_MARK
+        arr = np.asarray(jax.device_get(leaf))
+        if arr.dtype.kind == "V":  # bfloat16 & co: keep the raw bits
+            dtypes.setdefault(key, arr.dtype.name)
+            arr = arr.view(f"u{arr.dtype.itemsize}")
+        arrays[key] = arr
+    arrays[_DTYPES_KEY] = np.asarray(json.dumps(dtypes))
+    return arrays
+
+
+def _read(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path, allow_pickle=False) as z:
+        raw = {k: z[k] for k in z.files}
+    dtypes = json.loads(str(raw.pop(_DTYPES_KEY, "{}")))
+    for key, name in dtypes.items():
+        if name != _KEY_MARK:
+            raw[key] = raw[key].view(np.dtype(name))
+    return {"arrays": raw, "keys": {k for k, v in dtypes.items()
+                                     if v == _KEY_MARK}}
+
+
+def _restore(template: Any, stored: dict, prefix: str = "") -> Any:
+    """Fill ``template``'s leaves from ``stored`` by tree path. Raises
+    KeyError for a leaf the file lacks and ValueError for a shape or
+    dtype mismatch."""
+    arrays = stored["arrays"]
+    paths, treedef = jax.tree_util.tree_flatten_with_path(template)
+    leaves = []
+    for path, tmpl in paths:
+        key = prefix + jax.tree_util.keystr(path)
+        arr = arrays[key]
+        if key in stored["keys"]:
+            leaves.append(jax.random.wrap_key_data(
+                arr, impl=jax.random.key_impl(tmpl)))
+            continue
+        want = np.dtype(tmpl.dtype)
+        if arr.shape != np.shape(tmpl) or arr.dtype != want:
+            raise ValueError(
+                f"checkpoint leaf {key}: stored {arr.dtype}{arr.shape}, "
+                f"template {want}{np.shape(tmpl)}"
+            )
+        leaves.append(arr)
+    return jax.tree_util.tree_unflatten(treedef, leaves)
+
+
+def _write(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
 def save_checkpoint(
     workdir: str, stamp: str, state: Any, *, slot: str = "latest"
 ) -> str:
@@ -74,15 +143,8 @@ def save_checkpoint(
     Device arrays are fetched to host first so a sharded state saves from
     any mesh layout."""
     os.makedirs(workdir, exist_ok=True)
-    host_state = jax.tree.map(
-        lambda x: jax.device_get(x) if hasattr(x, "device") else x, state
-    )
-    data = serialization.to_bytes(host_state)
     path = _path(workdir, stamp, slot)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, path)
+    _write(path, _flatten(state))
     return path
 
 
@@ -90,10 +152,16 @@ def load_checkpoint(
     workdir: str, stamp: str, template: Any, *, slot: str = "latest"
 ) -> Any:
     """Restore into the structure of ``template`` (a freshly built state
-    with the same config)."""
-    with open(_path(workdir, stamp, slot), "rb") as f:
-        data = f.read()
-    return serialization.from_bytes(template, data)
+    with the same config). Raises ValueError if the file holds leaves
+    the template lacks."""
+    stored = _read(_path(workdir, stamp, slot))
+    n_template = len(jax.tree.leaves(template))
+    if len(stored["arrays"]) != n_template:
+        raise ValueError(
+            f"checkpoint {stamp}/{slot} holds {len(stored['arrays'])} "
+            f"leaves, template {n_template}"
+        )
+    return _restore(template, stored)
 
 
 def load_checkpoint_flexible(
@@ -116,15 +184,12 @@ def load_checkpoint_flexible(
     try:
         return load_checkpoint(workdir, stamp, template, slot=slot)
     except (ValueError, KeyError) as exc:
-        with open(_path(workdir, stamp, slot), "rb") as f:
-            raw = serialization.msgpack_restore(f.read())
-        if not (hasattr(template, "params") and "params" in raw):
+        stored = _read(_path(workdir, stamp, slot))
+        if not (hasattr(template, "params") and ".step" in stored["arrays"]):
             raise
-        params = serialization.from_state_dict(
-            template.params, raw["params"]
-        )
+        params = _restore(template.params, stored, prefix=".params")
         step = jax.numpy.asarray(
-            int(raw.get("step", 0)), jax.numpy.int32
+            int(stored["arrays"][".step"]), jax.numpy.int32
         )
         logging.warning(
             "checkpoint %s/%s: optimizer state layout mismatch (%s); "
@@ -168,38 +233,6 @@ def has_checkpoint(workdir: str, stamp: str, slot: str = "latest") -> bool:
     return os.path.exists(_path(workdir, stamp, slot))
 
 
-# ---------------------------------------------------------------------------
-# Orbax backend (optional): same best/latest slot layout, stored as Orbax
-# StandardCheckpointer directories — for interop with the broader JAX
-# checkpoint ecosystem (multi-host OCDBT stores, async managers).
-# ---------------------------------------------------------------------------
-
-def _orbax_path(workdir: str, stamp: str, slot: str) -> str:
-    return os.path.abspath(os.path.join(workdir, f"{stamp}_{slot}.orbax"))
-
-
-def save_checkpoint_orbax(
-    workdir: str, stamp: str, state: Any, *, slot: str = "latest"
-) -> str:
-    import orbax.checkpoint as ocp
-
-    os.makedirs(workdir, exist_ok=True)
-    path = _orbax_path(workdir, stamp, slot)
-    ckpt = ocp.StandardCheckpointer()
-    ckpt.save(path, state, force=True)
-    ckpt.wait_until_finished()
-    return path
-
-
-def load_checkpoint_orbax(
-    workdir: str, stamp: str, template: Any, *, slot: str = "latest"
-) -> Any:
-    import orbax.checkpoint as ocp
-
-    ckpt = ocp.StandardCheckpointer()
-    return ckpt.restore(_orbax_path(workdir, stamp, slot), template)
-
-
 class AsyncCheckpointer:
     """Non-blocking checkpoint writer for long multi-host runs.
 
@@ -222,12 +255,9 @@ class AsyncCheckpointer:
         self._threading = threading
 
     def save(self, state: Any, *, slot: str = "latest") -> None:
-        host_state = jax.tree.map(
-            lambda x: jax.device_get(x) if hasattr(x, "device") else x,
-            state,
-        )
+        arrays = _flatten(state)
         with self._lock:
-            self._pending[slot] = host_state
+            self._pending[slot] = arrays
             if self._thread is None or not self._thread.is_alive():
                 self._thread = self._threading.Thread(
                     target=self._drain, daemon=True
@@ -239,8 +269,9 @@ class AsyncCheckpointer:
             with self._lock:
                 if not self._pending:
                     return
-                slot, host_state = self._pending.popitem()
-            save_checkpoint(self.workdir, self.stamp, host_state, slot=slot)
+                slot, arrays = self._pending.popitem()
+            os.makedirs(self.workdir, exist_ok=True)
+            _write(_path(self.workdir, self.stamp, slot), arrays)
 
     def wait(self) -> None:
         t = self._thread

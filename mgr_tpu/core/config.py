@@ -6,7 +6,7 @@ Replaces the reference's hard-coded module constants and interactive
 The canonical hyperparameters below are the reference's operating points,
 preserved as defaults so parity runs reproduce its regime:
 
-  batch 2 (reference single-GPU ceiling; we default much larger on TPU),
+  batch 2 (reference single-GPU ceiling; we default much larger),
   maxlen 1900, audio feats 39, skeletal feats 20, image 60x60,
   classes 44 (speech words) / 22 (gestures), label caps 150/28/35,
   Adam lr 1e-4 + clipvalue 0.5 (+ decay 1e-5 where the reference uses it),
@@ -28,7 +28,7 @@ class MeshConfig:
     Axes: data (DP, batch), model (TP, LSTM hidden blocks), time (SP —
     the time axis of inputs/projections shards for the pointwise and
     conv stages; XLA all-gathers before the serial recurrence, which is
-    the honest TPU treatment of an RNN's time axis, SURVEY.md §5.7)."""
+    the honest treatment of an RNN's time axis, SURVEY.md §5.7)."""
 
     data: int = 1
     model: int = 1
@@ -62,9 +62,8 @@ class OptimizerConfig:
     # Gradient accumulation: the train step splits its batch into
     # `accum_steps` microbatches and scans over them, so activation
     # memory is O(batch/accum_steps) — effective batch can exceed the
-    # single-chip HBM ceiling (B=128 with the fused kernels at the
-    # speech geometry). Gradients average across microbatches; one
-    # optimizer update per step.
+    # single-device memory ceiling. Gradients average across
+    # microbatches; one optimizer update per step.
     accum_steps: int = 1
     # Skip parameter updates whose gradients are non-finite
     # (optax.apply_if_finite; the value bounds consecutive skips). bf16
@@ -94,7 +93,7 @@ class EncoderConfig:
     residual: bool = True
     # Keras-exact per-gate input dropout masks (4 masks, constant over
     # time). Default False uses one shared mask per layer, which keeps
-    # the input projection a single large MXU matmul; set True for
+    # the input projection a single large matmul; set True for
     # strict parity with keras.layers.LSTM(dropout=...).
     per_gate_dropout: bool = False
 
@@ -112,7 +111,7 @@ class CNNConfig:
     img_dim: int = 60
     # Rematerialize the conv frontend in the backward pass: the
     # (B*T, 56, 56, 16)-scale conv activations dominate RGB residual
-    # memory (the B=16 HBM cap, BASELINE.md); jax.checkpoint trades one
+    # memory; jax.checkpoint trades one
     # extra conv forward for them, lifting the batch ceiling.
     remat: bool = True
 

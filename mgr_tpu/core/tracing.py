@@ -3,7 +3,7 @@
 The reference's only instrumentation was a wall-clock print around
 fit_generator (speech_lstm_ctc_words.py:181-193). Here:
   * ``annotate(name)`` — jax.profiler trace annotation around a region
-    (shows up in xprof/tensorboard TPU traces).
+    (shows up in xprof/tensorboard device traces).
   * ``trace(logdir)`` — capture a full device trace for a block.
   * ``debug_nans(enable)`` — flip jax_debug_nans (the JAX-native
     replacement for sanitizers; SURVEY.md §5.2).

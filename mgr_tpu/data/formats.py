@@ -18,12 +18,12 @@
 
 from __future__ import annotations
 
+import csv
 import os
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
-import pandas as pd
 
 # The 20 model features, in the exact column order the reference selects
 # (skeletal_lstm_ctc.py:74-77).
@@ -46,17 +46,55 @@ def zscore(x: np.ndarray) -> np.ndarray:
     return (x - mean) / std
 
 
+def read_csv(path: str | os.PathLike) -> Tuple[List[str], List[List[str]]]:
+    """Header row and body rows of a CSV, as text (blank lines dropped)."""
+    with open(path, newline="") as f:
+        rows = [r for r in csv.reader(f) if r]
+    if not rows:
+        return [], []
+    return rows[0], rows[1:]
+
+
+def write_csv(path: str | os.PathLike, header: List[str],
+              rows: Iterable[List[str]]) -> None:
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        w.writerows(rows)
+
+
+def unique_in_order(values: Iterable) -> list:
+    """Distinct values in first-appearance order (pandas ``unique``)."""
+    return list(dict.fromkeys(values))
+
+
+def numeric_id(cell: str) -> int:
+    """A file-id cell as int ('7' and '7.0' both give 7)."""
+    return int(float(cell))
+
+
+def load_numeric_columns(
+    path: str | os.PathLike, header: bool = True
+) -> Tuple[List[str], np.ndarray]:
+    """(column names, (rows, cols) float64 body) of an all-numeric CSV."""
+    names: List[str] = []
+    if header:
+        with open(path, newline="") as f:
+            names = next(csv.reader(f))
+    body = np.loadtxt(path, delimiter=",", skiprows=1 if header else 0,
+                      dtype=np.float64, ndmin=2)
+    return names, body
+
+
 def load_label_csv(path: str | os.PathLike) -> Dict[int, List[int]]:
     """``Id,Sequence`` -> {file_id: [class ids]}. Empty/missing sequences
     map to []."""
-    df = pd.read_csv(path)
+    header, rows = read_csv(path)
+    i_id, i_seq = header.index("Id"), header.index("Sequence")
     out: Dict[int, List[int]] = {}
-    for _, row in df.iterrows():
-        seq = row["Sequence"]
-        if isinstance(seq, str) and seq.strip():
-            out[int(row["Id"])] = [int(x) for x in seq.split()]
-        else:
-            out[int(row["Id"])] = []
+    for row in rows:
+        seq = row[i_seq] if i_seq < len(row) else ""
+        out[numeric_id(row[i_id])] = [int(x) for x in seq.split()]
     return out
 
 
@@ -100,14 +138,14 @@ def load_monolithic_audio_csv(
     """Headerless labeled audio CSV -> {file_id: (feats (T,39), frame_labels
     (T,))}. Features are optionally z-scored over the WHOLE corpus before
     splitting by file (early_multimodal.py:88-92)."""
-    df = pd.read_csv(path, header=None)
-    feats = df.iloc[:, :NUM_AUDIO_FEATS].to_numpy(dtype=np.float32)
+    _, body = load_numeric_columns(path, header=False)
+    feats = body[:, :NUM_AUDIO_FEATS].astype(np.float32)
     if normalize:
         feats = zscore(feats)
-    file_nums = df.iloc[:, NUM_AUDIO_FEATS].to_numpy()
-    frame_labels = df.iloc[:, NUM_AUDIO_FEATS + 1].to_numpy(dtype=np.int32)
+    file_nums = body[:, NUM_AUDIO_FEATS]
+    frame_labels = body[:, NUM_AUDIO_FEATS + 1].astype(np.int32)
     out: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-    for fid in pd.unique(file_nums):
+    for fid in unique_in_order(file_nums):
         m = file_nums == fid
         out[int(fid)] = (feats[m], frame_labels[m])
     return out
@@ -118,13 +156,14 @@ def load_skeletal_csv(
 ) -> Dict[int, np.ndarray]:
     """Monolithic skeletal CSV -> {file_id: (T, 20) float32}, z-scored
     over the whole corpus first (skeletal_lstm_ctc.py:116-134)."""
-    df = pd.read_csv(path)
-    feats = df[list(SKELETAL_FEATURES)].to_numpy(dtype=np.float32)
+    names, body = load_numeric_columns(path)
+    feats = body[:, [names.index(c) for c in SKELETAL_FEATURES]].astype(
+        np.float32)
     if normalize:
         feats = zscore(feats)
-    file_nums = df["file_number"].to_numpy()
+    file_nums = body[:, names.index("file_number")]
     out: Dict[int, np.ndarray] = {}
-    for fid in pd.unique(file_nums):
+    for fid in unique_in_order(file_nums):
         out[int(fid)] = feats[file_nums == fid]
     return out
 

@@ -18,7 +18,8 @@ import os
 import random
 from typing import Dict, List, Sequence, Tuple
 
-import pandas as pd
+from mgr_tpu.data.formats import (numeric_id, read_csv, unique_in_order,
+                                   write_csv)
 
 
 def sample_validation_files(
@@ -35,19 +36,39 @@ def sample_validation_files(
     return moved, kept
 
 
+def _split_rows(path: str, id_col: str, moved: Sequence[int],
+                header: List[str] | None = None):
+    """(header, rows of ``moved`` ids, other rows) of a CSV; rows are
+    reordered to ``header``'s columns when one is given."""
+    own, rows = read_csv(path)
+    if header is not None and own != header:
+        order = [own.index(c) for c in header]
+        rows = [[r[i] for i in order] for r in rows]
+        own = header
+    i = own.index(id_col)
+    moved = set(moved)
+    hit = [r for r in rows if numeric_id(r[i]) in moved]
+    rest = [r for r in rows if numeric_id(r[i]) not in moved]
+    return own, hit, rest
+
+
+def _append_moved(
+    train_csv: str, val_csv: str, moved: Sequence[int],
+    out_train: str, out_val: str, id_col: str,
+) -> None:
+    header, train_rows = read_csv(train_csv)
+    _, hit, rest = _split_rows(val_csv, id_col, moved, header)
+    write_csv(out_train, header, train_rows + hit)
+    write_csv(out_val, header, rest)
+
+
 def mix_frame_datasets(
     train_csv: str, val_csv: str, moved: Sequence[int],
     out_train: str, out_val: str, id_col: str = "file_number",
 ) -> None:
     """Move rows of ``moved`` file ids from the validation CSV into the
     training CSV (mix_data.py:35-56), writing the two new sets."""
-    val_df = pd.read_csv(val_csv)
-    moved_df = val_df.loc[val_df[id_col].isin(moved)]
-    rest_df = val_df.loc[~val_df[id_col].isin(moved)]
-    train_df = pd.concat([pd.read_csv(train_csv), moved_df],
-                         ignore_index=True)
-    train_df.to_csv(out_train, index=False)
-    rest_df.to_csv(out_val, index=False)
+    _append_moved(train_csv, val_csv, moved, out_train, out_val, id_col)
 
 
 def mix_label_csvs(
@@ -55,14 +76,14 @@ def mix_label_csvs(
     out_train: str, out_val: str,
 ) -> None:
     """Same move for the Id/Sequence label CSVs (mix_data.py:87-104)."""
-    train_df = pd.read_csv(train_labels_csv)
-    val_df = pd.read_csv(val_labels_csv)
-    moved_df = val_df.loc[val_df["Id"].isin(moved)]
-    rest_df = val_df.loc[~val_df["Id"].isin(moved)]
-    pd.concat([train_df, moved_df], ignore_index=True).to_csv(
-        out_train, index=False
-    )
-    rest_df.to_csv(out_val, index=False)
+    _append_moved(train_labels_csv, val_labels_csv, moved, out_train,
+                  out_val, "Id")
+
+
+def _file_ids(path: str) -> List[int]:
+    header, rows = read_csv(path)
+    i = header.index("file_number")
+    return unique_in_order(numeric_id(r[i]) for r in rows)
 
 
 def explode_audio_csv(
@@ -72,15 +93,15 @@ def explode_audio_csv(
     """Split a monolithic audio CSV into per-file ``audio_<id>.csv``
     (mix_data.py:59-84, 107-125). Returns the ids written."""
     os.makedirs(out_dir, exist_ok=True)
-    df = pd.read_csv(monolithic_csv)
-    ids = (
-        list(file_list)
-        if file_list is not None
-        else [int(x) for x in pd.unique(df["file_number"])]
-    )
+    header, rows = read_csv(monolithic_csv)
+    i = header.index("file_number")
+    by_id: Dict[int, list] = {}
+    for r in rows:
+        by_id.setdefault(numeric_id(r[i]), []).append(r)
+    ids = list(file_list) if file_list is not None else list(by_id)
     for fid in ids:
-        vf = df[df["file_number"] == fid]
-        vf.to_csv(os.path.join(out_dir, f"audio_{fid}.csv"), index=False)
+        write_csv(os.path.join(out_dir, f"audio_{fid}.csv"), header,
+                  by_id.get(int(fid), []))
     return ids
 
 
@@ -100,12 +121,7 @@ def mix_all(
     files, merge them into training across labels/audio/skeletal, and
     explode the per-file audio directories."""
     os.makedirs(out_root, exist_ok=True)
-    val_ids = [
-        int(x)
-        for x in pd.unique(
-            pd.read_csv(audio_val_csv, usecols=["file_number"])["file_number"]
-        )
-    ]
+    val_ids = _file_ids(audio_val_csv)
     moved, kept = sample_validation_files(val_ids, n_moved, seed)
 
     mix_label_csvs(
@@ -114,14 +130,7 @@ def mix_all(
         os.path.join(out_root, "validation.csv"),
     )
 
-    train_ids = [
-        int(x)
-        for x in pd.unique(
-            pd.read_csv(audio_train_csv, usecols=["file_number"])[
-                "file_number"
-            ]
-        )
-    ]
+    train_ids = _file_ids(audio_train_csv)
     train_dir = os.path.join(out_root, "train_audio")
     val_dir = os.path.join(out_root, "val_audio")
     explode_audio_csv(audio_train_csv, train_dir, train_ids)

@@ -63,12 +63,13 @@ def _parse_pair_column(values: Sequence[str]) -> np.ndarray:
 
 def parse_kinect_csv(path: str) -> Dict[str, np.ndarray]:
     """Raw per-video CSV -> {joint: (T, 2)} tracks."""
-    import pandas as pd
+    from mgr_tpu.data.formats import read_csv
 
-    df = pd.read_csv(path)
+    header, rows = read_csv(path)
     joints = {}
     for col, key in KINECT_COLUMNS.items():
-        joints[key] = _parse_pair_column(df[col].tolist())
+        i = header.index(col)
+        joints[key] = _parse_pair_column([r[i] for r in rows])
     return joints
 
 

@@ -9,7 +9,7 @@ repeats merge correctly through blanks.
 This runs on host over (T, C) numpy posteriors — decoding is a tiny
 fraction of pipeline time (one pass over ~400 utterances), so clarity
 beats a device kernel here; the heavy part (the model forward) is
-already batched on the TPU.
+already batched on the device.
 """
 
 from __future__ import annotations

@@ -64,7 +64,7 @@ def dropout(
 # ---------------------------------------------------------------------------
 # CNN frontend (RGB stream): three TimeDistributed conv/pool blocks
 # 16@5x5 / 32@5x5 / 48@4x4, valid padding, relu, 2x2 maxpool
-# (/root/reference/rgb_network/cnn_lstm.py:261-298). TPU-native: the time
+# (/root/reference/rgb_network/cnn_lstm.py:261-298). The time
 # axis is folded into the batch so each conv is one big NHWC convolution.
 # ---------------------------------------------------------------------------
 
@@ -104,14 +104,14 @@ def cnn_frontend(
     """(B, T, H, W, C) video -> (B, T, D) frame features.
 
     Folds time into batch: one large conv per block instead of T small
-    ones (the TPU-idiomatic TimeDistributed)."""
+    ones (TimeDistributed as one batched op)."""
     B, T, H, W, C = x.shape
     y = x.reshape(B * T, H, W, C).astype(compute_dtype)
     for i, p in enumerate(cfg.pool_sizes):
         kernel = params[f"conv_{i}"].astype(compute_dtype)
         # No preferred_element_type: the conv transpose rule rejects an
         # f32 cotangent against bf16 operands (so bf16 training would
-        # fail); TPU convs accumulate in f32 internally either way, the
+        # fail); the convs accumulate in f32 internally either way, the
         # output dtype only picks the storage rounding.
         y = jax.lax.conv_general_dilated(
             y, kernel,

@@ -1,8 +1,8 @@
-"""TPU-native compute ops: CTC, fused BLSTM scan, MFCC, kinematics, decode.
+"""Compute ops: CTC, fused BLSTM scan, MFCC, kinematics, decode.
 
-This package is the framework's "native" layer — the TPU analogue of the
+This package is the framework's "native" layer — the counterpart of the
 C++ TF kernels the reference delegates to (`K.ctc_batch_cost` at
 /root/reference/audio_network/losses.py:13 and the bundled LSTM kernels).
-Pure-JAX implementations are the source of truth; Pallas kernels in
-`mgr_tpu.ops.pallas_kernels` accelerate the hot paths.
+Pure-JAX implementations are the source of truth; the Triton-route
+Pallas CTC kernel in `mgr_tpu.ops.pallas_kernels` runs on the GPU.
 """

@@ -1,6 +1,6 @@
 """CTC loss: log-space forward recursion, XLA-autodiff backward.
 
-TPU-native replacement for the reference's ``K.ctc_batch_cost`` call
+Replacement for the reference's ``K.ctc_batch_cost`` call
 (/root/reference/audio_network/losses.py:4-15 — TF 1.12's C++ CTC op).
 Conventions preserved from the reference (see SURVEY.md §2.2):
 
@@ -13,18 +13,20 @@ Conventions preserved from the reference (see SURVEY.md §2.2):
     (/root/reference/audio_network/losses.py:9-11,
      /root/reference/audio_network/data_generator.py:223)
 
-Design notes (why this is not a port):
+Design notes:
 
   The classic lattice formulation walks a (T, 2L+1) trellis with a
-  per-step gather of label scores — gathers inside a scan are slow on
-  TPU. We instead use the phi/emit split (the canonical JAX CTC
-  factorization): emission scores for all labels are pre-gathered in ONE
-  batched matmul ``einsum('btk,bnk->btn', log_probs, onehot(labels))``
-  that XLA tiles onto the MXU, and the time scan then carries two dense
-  vectors, alpha_phi (B, N+1) and alpha_emit (B, N), using only VPU
-  element-wise ops. The backward recursion is never hand-written: the
-  loss is a composition of logaddexp under ``lax.scan``, so XLA autodiff
-  produces the standard CTC gradient.
+  per-step gather of label scores. We instead use the phi/emit split
+  (the canonical JAX CTC factorization): emission scores for all labels
+  are pre-gathered in ONE batched matmul
+  ``einsum('btk,bnk->tbn', log_probs, onehot(labels))`` in full float32
+  precision, and the time scan then carries two dense vectors,
+  alpha_phi (B, N+1) and alpha_emit (B, N), using only element-wise
+  ops. The backward recursion of this plain path is never hand-written:
+  the loss is a composition of logaddexp under ``lax.scan``, so XLA
+  autodiff produces the standard CTC gradient. On the GPU the same
+  recursion also runs as a Triton kernel with a hand-derived adjoint
+  (mgr_tpu.ops.pallas_kernels), chosen by mgr_tpu.ops.dispatch.
 """
 
 from __future__ import annotations
@@ -48,11 +50,13 @@ def ctc_loss(
     blank: Optional[int] = None,
     unroll: int = 1,
     backend: str = "auto",
+    time_major: bool = False,
 ) -> jax.Array:
     """Per-sequence negative log-likelihood, shape (B,).
 
     Args:
-      log_probs: (B, T, K) log-probabilities (e.g. ``jax.nn.log_softmax``).
+      log_probs: (B, T, K) log-probabilities (e.g. ``jax.nn.log_softmax``),
+        or (T, B, K) with ``time_major``.
       labels: (B, N) int labels; positions >= label_length may hold any
         value (the reference pads with -1).
       input_lengths: (B,) valid frame counts (<= T).
@@ -60,44 +64,52 @@ def ctc_loss(
         scored as "emit only blanks".
       blank: blank class index; defaults to K - 1 (the reference's
         convention, data_generator.py:42).
-      backend: "auto" (fused Pallas recursion on TPU, lax.scan
-        elsewhere), "pallas", or "xla". The Pallas path is ~50x faster
-        on v5e where the scan is loop-overhead-bound; both are
-        cross-validated in tests.
+      backend: "auto" (the Triton kernel where mgr_tpu.ops.dispatch
+        allows it, the lax.scan recursion elsewhere), "pallas" (the
+        kernel; raises off the GPU), or "xla" (the scan).
     """
     if backend == "pallas" or (backend == "auto" and _dispatch.pallas_ok()):
+        _dispatch.require_gpu()
         from mgr_tpu.ops.pallas_kernels import pallas_ctc_loss
 
         return pallas_ctc_loss(
-            log_probs, labels, input_lengths, label_lengths, blank
+            log_probs, labels, input_lengths, label_lengths, blank,
+            time_major=time_major,
         )
-    B, T, K = log_probs.shape
+    if time_major:
+        T, B, K = log_probs.shape
+    else:
+        B, T, K = log_probs.shape
     N = labels.shape[1]
     if blank is None:
         blank = K - 1
 
-    log_probs = log_probs.astype(jnp.float32)
+    # At least float32 (float64 stays: the on-card reference runs in it).
+    dtype = jnp.promote_types(log_probs.dtype, jnp.float32)
+    log_probs = log_probs.astype(dtype)
     labels = jnp.where(labels < 0, 0, labels).astype(jnp.int32)
     input_lengths = input_lengths.astype(jnp.int32).reshape(B)
     label_lengths = label_lengths.astype(jnp.int32).reshape(B)
 
-    # Pre-gather emission scores with one MXU-friendly batched matmul.
+    # Pre-gather emission scores with one batched matmul that emits the
+    # scan's time-major layout directly (full f32: these are scores).
     onehot = jax.nn.one_hot(labels, K, dtype=log_probs.dtype)  # (B, N, K)
-    lp_emit = jnp.einsum("btk,bnk->btn", log_probs, onehot)  # (B, T, N)
-    lp_phi = log_probs[:, :, blank]  # (B, T)
+    lp_emit_t = jnp.einsum(
+        "tbk,bnk->tbn" if time_major else "btk,bnk->tbn",
+        log_probs, onehot, precision=jax.lax.Precision.HIGHEST,
+    )  # (T, B, N)
+    lp_phi_t = log_probs[:, :, blank]
+    if not time_major:
+        lp_phi_t = lp_phi_t.T  # (T, B)
 
     # Direct emit[n-1] -> emit[n] transition is illegal when the labels
     # repeat (CTC requires a blank between equal labels).
     same = labels[:, 1:] == labels[:, :-1]  # (B, N-1)
     skip_penalty = jnp.where(same, _LOG_EPS, 0.0)  # add to emit[n-1] source
 
-    # Time-major for the scan.
-    lp_emit_t = jnp.moveaxis(lp_emit, 1, 0)  # (T, B, N)
-    lp_phi_t = jnp.moveaxis(lp_phi, 1, 0)  # (T, B)
-
-    alpha_phi0 = jnp.full((B, N + 1), _LOG_EPS, dtype=jnp.float32)
+    alpha_phi0 = jnp.full((B, N + 1), _LOG_EPS, dtype=dtype)
     alpha_phi0 = alpha_phi0.at[:, 0].set(0.0)
-    alpha_emit0 = jnp.full((B, N), _LOG_EPS, dtype=jnp.float32)
+    alpha_emit0 = jnp.full((B, N), _LOG_EPS, dtype=dtype)
 
     time_idx = jnp.arange(T, dtype=jnp.int32)
 
@@ -109,7 +121,8 @@ def ctc_loss(
         # come from phi[n] (blank before label n), or skip directly from
         # emit[n-1] when labels differ.
         prev_emit_shift = jnp.concatenate(
-            [jnp.full((B, 1), _LOG_EPS), alpha_emit[:, :-1] + skip_penalty],
+            [jnp.full((B, 1), _LOG_EPS, dtype),
+             alpha_emit[:, :-1] + skip_penalty],
             axis=1,
         )
         new_emit = (
@@ -121,7 +134,7 @@ def ctc_loss(
 
         # Sources reaching phi[n]: stay in phi[n], or finish emit[n-1].
         emit_shift = jnp.concatenate(
-            [jnp.full((B, 1), _LOG_EPS), alpha_emit], axis=1
+            [jnp.full((B, 1), _LOG_EPS, dtype), alpha_emit], axis=1
         )
         new_phi = jnp.logaddexp(alpha_phi, emit_shift) + lp_b[:, None]
 
@@ -162,22 +175,14 @@ def ctc_loss_from_logits(
     the trimmed frames, matching data_generator.py:223.
 
     ``time_major`` accepts (T, B, K) logits directly from the
-    time-major model path; the Pallas packing einsum absorbs the layout
-    so the large activation never transposes."""
+    time-major model path; the emission-gather einsum absorbs the
+    layout, so the large activation never transposes."""
     if trim_frames:
         logits = logits[trim_frames:] if time_major else \
             logits[:, trim_frames:, :]
     log_probs = jax.nn.log_softmax(logits, axis=-1)
-    if time_major:
-        if _dispatch.pallas_ok():
-            from mgr_tpu.ops.pallas_kernels import pallas_ctc_loss
-
-            return pallas_ctc_loss(
-                log_probs, labels, input_lengths, label_lengths, blank,
-                time_major=True,
-            )
-        log_probs = jnp.swapaxes(log_probs, 0, 1)
-    return ctc_loss(log_probs, labels, input_lengths, label_lengths, blank)
+    return ctc_loss(log_probs, labels, input_lengths, label_lengths, blank,
+                    time_major=time_major)
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,21 @@
-"""Kernel-backend dispatch policy shared by the fused Pallas ops.
+"""Where the hand-written Pallas kernels run, and the shard_map contexts.
 
-Single source of truth for "may the fused Pallas kernels run here?".
-Three inputs decide it:
+Single source of truth for "may the CTC kernel run here?". Three inputs
+decide it:
 
   * ``MODE`` — "auto" (default), "pallas" (force), "xla" (disable);
-    set via :func:`set_mode` / ``mgr_tpu.ops.lstm.use_pallas``.
-  * the backend — Pallas TPU kernels only compile on TPU ("auto" falls
-    back to the partitionable lax.scan path elsewhere; interpret mode is
-    reachable by forcing "pallas", which tests use on CPU).
+    set via :func:`set_mode`.
+  * the backend — the kernels are written for the GPU through Triton.
+    "auto" selects them only when JAX's default backend is the GPU;
+    forcing them anywhere else raises. Interpret mode is never chosen
+    here: a caller asks for it with ``interpret=True``.
   * the sharding context — under multi-device pjit/GSPMD a
     ``pallas_call`` is a black box (operands get all-gathered), so the
     kernels are unsafe on GLOBAL arrays. Inside ``shard_map`` each
-    device traces over its LOCAL shard, where they are safe again:
-    the sharded train step (mgr_tpu.train.step) wraps its per-device
+    device traces over its LOCAL shard, where they are safe again: the
+    sharded train step (mgr_tpu.train.step) wraps its per-device
     loss/grad computation in :func:`shard_local`, which flips a
     trace-time context flag consulted here.
-
-This is the round-2 fix for VERDICT r1 item 2: multi-chip DP keeps the
-fused recurrence + CTC instead of silently dropping to the ~2.8x
-slower XLA scan.
 """
 
 from __future__ import annotations
@@ -30,8 +27,7 @@ import jax
 
 MODE = "auto"
 
-_SHARD_LOCAL = contextvars.ContextVar("mgr_tpu_pallas_shard_local",
-                                      default=False)
+_SHARD_LOCAL = contextvars.ContextVar("mgr_tpu_shard_local", default=False)
 _DIR_SHARD_AXIS = contextvars.ContextVar("mgr_tpu_direction_shard_axis",
                                          default=None)
 
@@ -47,8 +43,8 @@ def set_mode(mode: str) -> None:
 @contextlib.contextmanager
 def shard_local():
     """Trace-time marker: code inside runs per-device (shard_map body),
-    so the Pallas kernels see local shards and may engage even when the
-    global device count is > 1."""
+    so the kernels see local shards and may engage even when the global
+    device count is > 1."""
     token = _SHARD_LOCAL.set(True)
     try:
         yield
@@ -79,22 +75,28 @@ def direction_shard_axis():
     return _DIR_SHARD_AXIS.get()
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
+def _backend() -> str:
+    return jax.default_backend()
+
+
+def require_gpu() -> None:
+    """Raise unless the kernels can compile here."""
+    backend = _backend()
+    if backend != "gpu":
+        raise RuntimeError(
+            f"the Pallas kernels compile only for the GPU (Triton route); "
+            f"JAX's default backend is {backend!r}. Use the plain XLA "
+            f"path here, or pass interpret=True to the kernel directly."
+        )
 
 
 def pallas_ok() -> bool:
-    """True when the fused Pallas kernels should run (trace-time check)."""
-    if MODE == "pallas":
-        return True
+    """True when the CTC kernel should run (trace-time check)."""
     if MODE == "xla":
         return False
-    if not _on_tpu():
+    if MODE == "pallas":
+        require_gpu()
+        return True
+    if _backend() != "gpu":
         return False
-    try:
-        return jax.device_count() == 1 or _SHARD_LOCAL.get()
-    except Exception:  # pragma: no cover
-        return False
+    return jax.device_count() == 1 or _SHARD_LOCAL.get()

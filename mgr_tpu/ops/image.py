@@ -5,7 +5,7 @@ INTER_CUBIC resize).
 The reference crops a per-frame upper-body box from skeletal joints
 (shcY-120 .. hipY+120, hipX-180 .. hipX+180, clipped to 640x480) and
 bicubic-resizes to 60x60. A dynamic-size crop followed by a resize is
-not expressible with static shapes, so the TPU-native formulation uses
+not expressible with static shapes, so the formulation here uses
 ``jax.image.scale_and_translate`` with a cubic (Keys) kernel: the resize
 reads directly from the source box, output shape static, box parameters
 traced — one fused XLA op per frame batch, vmappable over time.

@@ -77,7 +77,7 @@ def rest_position(
     their means), per joint (estimate_rest_position, r_position.py:8-21).
     Returns {joint: (2,) int-truncated medians}.
 
-    TPU note: the data-dependent row filter becomes a masked median —
+    Static shapes: the data-dependent row filter becomes a masked median —
     out-of-mask frames are set to NaN and ``nanmedian`` reduces; shapes
     stay static."""
     low = (lh_v < lh_v.mean()) & (rh_v < rh_v.mean())

@@ -1,6 +1,6 @@
 """Fused bidirectional LSTM scan with Keras-2 semantics.
 
-TPU-native replacement for the reference's ``keras.layers.LSTM`` inside
+Replacement for the reference's ``keras.layers.LSTM`` inside
 ``Bidirectional(..., merge_mode='concat')`` stacks
 (/root/reference/audio_network/speech_lstm_ctc_words.py:56-77).
 
@@ -17,15 +17,16 @@ SURVEY.md §7 "hard parts" item 3):
     projection one matmul) with ``per_gate=True`` for strict parity.
   * recurrent_dropout = 0 everywhere in the reference; not implemented.
 
-TPU-first design:
+Design:
   * The input projection x @ W for ALL timesteps is hoisted out of the
-    recurrence into one (B*T, F) @ (F, 4H) bf16 matmul (MXU). The
-    ``lax.scan`` step only computes the (B, H) @ (H, 4H) recurrent
-    matmul plus VPU gate math.
+    recurrence into one large bf16 matmul. The ``lax.scan`` step only
+    computes the (B, H) @ (H, 4H) recurrent matmul plus gate math.
   * Forward and backward directions run as ONE batched scan: weights are
-    stacked on a leading direction axis and the scan is ``vmap``-ed-style
-    batched, so the recurrent matmul per step is a single
-    (2, B, H) @ (2, H, 4H) batched matmul instead of two serial scans.
+    stacked on a leading direction axis, so the recurrent matmul per step
+    is a single (2, B, H) @ (2, H, 4H) batched matmul instead of two
+    serial scans.
+  * Every large tensor is time-major (T, ...): the scan consumes the
+    projections and emits the h stream without layout copies.
   * Weights are stored gate-blocked as (..., 4, H) rather than a fused
     4H axis. Gate selection is then a static index on the size-4 axis,
     and tensor parallelism shards the trailing H axis cleanly: each
@@ -42,6 +43,8 @@ from typing import Dict, Optional
 
 import jax
 import jax.numpy as jnp
+
+from mgr_tpu.ops import dispatch as _dispatch
 
 Params = Dict[str, jax.Array]
 
@@ -81,10 +84,11 @@ def init_bilstm_params(
     return {k: jnp.stack([fwd[k], bwd[k]]) for k in fwd}
 
 
-def _input_projection(
-    x: jax.Array,
+def _project_tm(
+    x2: jax.Array,
     W: jax.Array,
     b: jax.Array,
+    dirs,
     *,
     rng: Optional[jax.Array],
     dropout: float,
@@ -92,72 +96,40 @@ def _input_projection(
     train: bool,
     compute_dtype,
 ) -> jax.Array:
-    """x: (D, B, T, F), W: (D, F, 4, H) -> (D, B, T, 4, H)."""
-    D, B, T, F = x.shape
-    xc = x.astype(compute_dtype)
+    """Input projection for all timesteps at once.
+
+    x2: (T, D, B, F) per-direction inputs, W: (D, F, 4, H), b: (D, 4, H)
+    -> (T, D, B, 4, H) in compute dtype. Direction slot i draws its
+    dropout mask (constant over time) from ``fold_in(rng, dirs[i])``.
+    """
+    _, D, B, F = x2.shape
+    xc = x2.astype(compute_dtype)
     Wc = W.astype(compute_dtype)
+    bias = b[None, :, None]
     if train and dropout > 0.0:
         keep = 1.0 - dropout
+        shape = (4, B, F) if per_gate else (B, F)
+        mask = jnp.stack([
+            jax.random.bernoulli(jax.random.fold_in(rng, d), keep, shape)
+            for d in dirs
+        ]).astype(compute_dtype) / keep  # (D, [4,] B, F)
         if per_gate:
-            # Keras-exact: one mask per gate, constant over time.
-            mask = (
-                jax.random.bernoulli(rng, keep, (4, D, B, 1, F)).astype(
-                    compute_dtype
-                )
-                / keep
-            )
-            xp = jnp.einsum(
-                "gdbtf,dfgh->dbtgh", xc[None] * mask, Wc,
-                preferred_element_type=jnp.float32,
-            )
-            return xp + b[:, None, None, :, :]
-        mask = (
-            jax.random.bernoulli(rng, keep, (D, B, 1, F)).astype(compute_dtype)
-            / keep
-        )
-        xc = xc * mask
-    xp = jnp.einsum(
-        "dbtf,dfgh->dbtgh", xc, Wc, preferred_element_type=jnp.float32
-    )
-    # Keep the (D, B, T, 4, H) projection in compute dtype: it is the
-    # dominant activation buffer (4H >> F); gate math re-accumulates in
-    # f32 inside the scan.
-    return (xp + b[:, None, None, :, :]).astype(compute_dtype)
+            # Keras-exact: one mask per gate.
+            xg = xc[None] * jnp.moveaxis(mask, 1, 0)[:, None]
+            xp = jnp.einsum("gtdbf,dfgh->tdbgh", xg, Wc,
+                            preferred_element_type=jnp.float32)
+            return (xp + bias).astype(compute_dtype)
+        xc = xc * mask[None]
+    xp = jnp.einsum("tdbf,dfgh->tdbgh", xc, Wc,
+                    preferred_element_type=jnp.float32)
+    # The projection is the dominant activation buffer (4H >> F): keep
+    # it in compute dtype; gate math re-accumulates in f32 in the scan.
+    return (xp + bias).astype(compute_dtype)
 
 
-# Recurrence backend: "pallas" = the fused Pallas kernel
-# (mgr_tpu.ops.pallas_kernels) that keeps weights and carries in VMEM
-# across the whole sequence (2.8x faster than the lax.scan path on v5e);
-# "xla" = lax.scan; "auto" = pallas on TPU, xla elsewhere. The policy —
-# including the shard_map-local context that keeps the fused kernels
-# engaged under multi-device data parallelism — lives in
-# mgr_tpu.ops.dispatch; these wrappers are the historical public surface.
-from mgr_tpu.ops import dispatch as _dispatch
-
-
-def use_pallas(enable: bool = True) -> None:
-    _dispatch.set_mode("pallas" if enable else "xla")
-
-
-def _pallas_active() -> bool:
-    return _dispatch.pallas_ok()
-
-
-def _recurrent_scan(
-    xp: jax.Array, U: jax.Array, compute_dtype, unroll: int
-) -> jax.Array:
-    """xp: (D, B, T, 4, H) pre-projected inputs; U: (D, H, 4, H)
-    -> h (D, B, T, H).
-
-    One scan over time; its step is a single batched
-    (D, B, H) @ (D, H, 4H) matmul plus VPU gate math for BOTH directions.
-    """
-    if _pallas_active():
-        from mgr_tpu.ops.pallas_kernels import pallas_recurrent_scan
-
-        return pallas_recurrent_scan(xp, U).astype(compute_dtype)
-    D, B, T, _, H = xp.shape
-    Uc = U.astype(compute_dtype)
+def _lstm_step(Uc, compute_dtype):
+    """Scan body over (D, B, ...) carries: one batched (D, B, H) @
+    (D, H, 4H) product plus the gate math for every direction."""
 
     def step(carry, z):
         h, c = carry  # (D, B, H) f32 each
@@ -171,235 +143,49 @@ def _recurrent_scan(
         o = hard_sigmoid(gates[:, :, 3])
         c_new = f * c + i * g
         h_new = o * jnp.tanh(c_new)
-        # Carries stay f32 for recurrence stability; the emitted output
-        # stream is compute-dtype (it feeds the next layer's matmul and
-        # halves the dominant (T, D, B, H) activation buffer).
+        # Carries stay f32 for recurrence stability; the emitted stream
+        # is compute dtype (it feeds the next layer's matmul).
         return (h_new, c_new), h_new.astype(compute_dtype)
 
-    h0 = jnp.zeros((D, B, H), jnp.float32)
-    c0 = jnp.zeros((D, B, H), jnp.float32)
-    xp_t = jnp.moveaxis(xp, 2, 0)  # (T, D, B, 4, H)
-    _, hs = jax.lax.scan(step, (h0, c0), xp_t, unroll=unroll)
-    return jnp.moveaxis(hs, 0, 2)  # (D, B, T, H)
+    return step
+
+
+def _recurrent_scan(
+    xp: jax.Array, U: jax.Array, compute_dtype, unroll: int = 8
+) -> jax.Array:
+    """xp: (T, D, B, 4, H) time-major projections; U: (D, H, 4, H)
+    -> h (T, D, B, H). One scan over time for all D directions."""
+    _, D, B, _, H = xp.shape
+    step = _lstm_step(U.astype(compute_dtype), compute_dtype)
+    zeros = jnp.zeros((D, B, H), jnp.float32)
+    _, hs = jax.lax.scan(step, (zeros, zeros), xp, unroll=unroll)
+    return hs
 
 
 def _recurrent_scan_remat(
     xp: jax.Array, U: jax.Array, compute_dtype, chunk: int = 64
 ) -> jax.Array:
-    """Memory-light XLA recurrence: a scan over time CHUNKS whose body is
-    ``jax.checkpoint``-ed — backward recomputes one chunk's activations
-    at a time, so residual memory is O(T/chunk carries + one chunk)
-    instead of O(T). This is the long-sequence remat-chunking option of
-    SURVEY.md §5.7 for the lax.scan backend (the Pallas kernels are
-    already memory-light and ignore it). Wrapping the WHOLE layer in
-    checkpoint instead blows up compile time; scan-of-checkpointed-chunks
-    keeps the HLO linear."""
-    D, B, T, _, H = xp.shape
-    Uc = U.astype(compute_dtype)
-    Tp = ((T + chunk - 1) // chunk) * chunk
-    xp_t = jnp.moveaxis(xp, 2, 0)  # (T, D, B, 4, H)
+    """Memory-light :func:`_recurrent_scan`: a scan over time CHUNKS
+    whose body is ``jax.checkpoint``-ed, so backward recomputes one
+    chunk's activations at a time and residual memory is O(T/chunk
+    carries + one chunk) instead of O(T) (SURVEY.md §5.7). Wrapping the
+    whole layer in checkpoint instead blows up compile time;
+    scan-of-checkpointed-chunks keeps the HLO linear."""
+    T, D, B, _, H = xp.shape
+    step = _lstm_step(U.astype(compute_dtype), compute_dtype)
+    Tp = -(-T // chunk) * chunk
     if Tp != T:
-        xp_t = jnp.pad(
-            xp_t, ((0, Tp - T), (0, 0), (0, 0), (0, 0), (0, 0))
-        )
-    xs = xp_t.reshape(Tp // chunk, chunk, D, B, 4, H)
-
-    def step(carry, z):
-        h, c = carry
-        gates = z.astype(jnp.float32) + jnp.einsum(
-            "dbh,dhgk->dbgk", h.astype(compute_dtype), Uc,
-            preferred_element_type=jnp.float32,
-        )
-        i = hard_sigmoid(gates[:, :, 0])
-        f = hard_sigmoid(gates[:, :, 1])
-        g = jnp.tanh(gates[:, :, 2])
-        o = hard_sigmoid(gates[:, :, 3])
-        c_new = f * c + i * g
-        h_new = o * jnp.tanh(c_new)
-        return (h_new, c_new), h_new.astype(compute_dtype)
+        xp = jnp.pad(xp, ((0, Tp - T),) + ((0, 0),) * 4)
+    xs = xp.reshape((Tp // chunk, chunk) + xp.shape[1:])
 
     @jax.checkpoint
     def chunk_body(carry, xs_chunk):
         return jax.lax.scan(step, carry, xs_chunk)
 
-    h0 = jnp.zeros((D, B, H), jnp.float32)
-    c0 = jnp.zeros((D, B, H), jnp.float32)
-    _, hs = jax.lax.scan(chunk_body, (h0, c0), xs)  # (C, chunk, D, B, H)
-    hs = hs.reshape(Tp, D, B, H)[:T]
-    return jnp.moveaxis(hs, 0, 2)  # (D, B, T, H)
+    zeros = jnp.zeros((D, B, H), jnp.float32)
+    _, hs = jax.lax.scan(chunk_body, (zeros, zeros), xs)
+    return hs.reshape((Tp, D, B, H))[:T]
 
-
-def bilstm_layer(
-    params: Params,
-    x: jax.Array,
-    *,
-    rng: Optional[jax.Array] = None,
-    dropout: float = 0.0,
-    per_gate: bool = False,
-    train: bool = False,
-    compute_dtype=jnp.bfloat16,
-    unroll: int = 8,
-    remat: bool = False,
-) -> jax.Array:
-    """Bidirectional LSTM, merge_mode='concat': (B, T, F) -> (B, T, 2H).
-
-    ``params`` comes from :func:`init_bilstm_params` (direction-stacked).
-
-    ``remat=True`` uses the chunked-remat recurrence on the lax.scan
-    backend (memory O(one chunk) instead of O(T) in backward —
-    SURVEY.md §5.7); the Pallas backend is already memory-light, so the
-    flag only affects the XLA path.
-    """
-    if train and dropout > 0.0 and rng is None:
-        raise ValueError("dropout requires an rng key in train mode")
-
-    # Direction axis: slot 0 sees x, slot 1 sees time-reversed x.
-    x2 = jnp.stack([x, jnp.flip(x, axis=1)])  # (2, B, T, F)
-    xp = _input_projection(
-        x2, params["W"], params["b"],
-        rng=rng, dropout=dropout, per_gate=per_gate, train=train,
-        compute_dtype=compute_dtype,
-    )
-    if remat and not _pallas_active():
-        hs = _recurrent_scan_remat(xp, params["U"], compute_dtype)
-    else:
-        hs = _recurrent_scan(xp, params["U"], compute_dtype, unroll)
-    fwd = hs[0]
-    bwd = jnp.flip(hs[1], axis=1)
-    return jnp.concatenate([fwd, bwd], axis=-1)
-
-
-def bilstm_layer_tm_dirsharded(
-    params: Params,
-    x_tm: jax.Array,
-    *,
-    axis: str,
-    rng: Optional[jax.Array] = None,
-    dropout: float = 0.0,
-    per_gate: bool = False,
-    train: bool = False,
-    compute_dtype=jnp.bfloat16,
-) -> jax.Array:
-    """Direction-sharded BLSTM for tensor parallelism: (T, B, F) ->
-    (T, B, 2H) inside a ``shard_map`` body whose mesh axis ``axis`` has
-    size 2. Device d computes ONLY direction d — its projection, its
-    single-direction fused scan (``pallas_lstm_tm``) — then the two
-    h-streams all_gather over ``axis`` and concat. The serial per-step
-    dot chain halves per chip with zero per-step collectives; weights
-    stay replicated (they are ~MBs — sharding COMPUTE, not storage, is
-    the honest TPU treatment of a 2-direction RNN; an H-sharded variant
-    would psum every one of the T steps).
-
-    Numerics match :func:`bilstm_layer_tm` exactly: same projection
-    math, same per-direction dropout keys (fold_in(rng, d)), same scan
-    kernels per direction.
-    """
-    if train and dropout > 0.0 and rng is None:
-        raise ValueError("dropout requires an rng key in train mode")
-    T, B, F = x_tm.shape
-    d = jax.lax.axis_index(axis)
-    # Dynamic gather of direction d's weights: the gradient scatters
-    # back into slot d of the stacked (2, ...) params, so a psum over
-    # ``axis`` reassembles the full dW/dU/db (train.step's grad rule).
-    Wd = params["W"][d]
-    Ud = params["U"][d]
-    bd = params["b"][d]
-    xc = x_tm.astype(compute_dtype)
-    Wc = Wd.astype(compute_dtype)
-
-    if train and dropout > 0.0:
-        keep = 1.0 - dropout
-        rngd = jax.random.fold_in(rng, d)
-        if per_gate:
-            mask = (
-                jax.random.bernoulli(rngd, keep, (4, B, F)).astype(
-                    compute_dtype
-                )
-                / keep
-            )
-            xp = jnp.einsum(
-                "gtbf,fgh->tbgh", xc[None] * mask[:, None], Wc,
-                preferred_element_type=jnp.float32,
-            )
-            xp = (xp + bd[None, None]).astype(compute_dtype)
-        else:
-            mask = (
-                jax.random.bernoulli(rngd, keep, (B, F)).astype(
-                    compute_dtype
-                )
-                / keep
-            )
-            xp = jnp.einsum(
-                "tbf,fgh->tbgh", xc * mask[None], Wc,
-                preferred_element_type=jnp.float32,
-            )
-            xp = (xp + bd[None, None]).astype(compute_dtype)
-    else:
-        xp = jnp.einsum(
-            "tbf,fgh->tbgh", xc, Wc, preferred_element_type=jnp.float32
-        )
-        xp = (xp + bd[None, None]).astype(compute_dtype)
-
-    if _pallas_active():
-        from mgr_tpu.ops.pallas_kernels import pallas_lstm_tm
-
-        hs = jax.lax.cond(
-            d == 0,
-            lambda ops: pallas_lstm_tm(ops[0], ops[1], reverse=False),
-            lambda ops: pallas_lstm_tm(ops[0], ops[1], reverse=True),
-            (xp, Ud),
-        )
-    else:
-        def scan_one(ops, reverse):
-            xp_, U_ = ops
-            x_in = jnp.flip(xp_, axis=0) if reverse else xp_
-            xp_bm = jnp.moveaxis(x_in, 0, 1)[None]  # (1, B, T, 4, H)
-            hs_ = _recurrent_scan(xp_bm, U_[None], compute_dtype, 1)[0]
-            hs_ = jnp.moveaxis(hs_, 0, 1)  # (T, B, H)
-            return (jnp.flip(hs_, axis=0) if reverse else hs_).astype(
-                jnp.float32
-            )
-
-        hs = jax.lax.cond(
-            d == 0,
-            lambda ops: scan_one(ops, False),
-            lambda ops: scan_one(ops, True),
-            (xp, Ud),
-        )
-
-    both = jax.lax.all_gather(hs.astype(compute_dtype), axis)  # (2,T,B,H)
-    return jnp.concatenate([both[0], both[1]], axis=-1)
-
-
-def lstm_layer(
-    params: Params,
-    x: jax.Array,
-    *,
-    reverse: bool = False,
-    compute_dtype=jnp.bfloat16,
-    unroll: int = 8,
-) -> jax.Array:
-    """Single-direction LSTM (no dropout): (B, T, F) -> (B, T, H)."""
-    xi = jnp.flip(x, axis=1) if reverse else x
-    xp = _input_projection(
-        xi[None], params["W"][None], params["b"][None],
-        rng=None, dropout=0.0, per_gate=False, train=False,
-        compute_dtype=compute_dtype,
-    )
-    hs = _recurrent_scan(xp, params["U"][None], compute_dtype, unroll)[0]
-    return jnp.flip(hs, axis=1) if reverse else hs
-
-
-# ---------------------------------------------------------------------------
-# Time-major fast path. Layout profiling (docs/KERNELS.md) showed the
-# (B, T, ...) public layout spends ~58 ms/layer at B=128 transposing the
-# gate projections and the h-stream around the kernels — 3.5x the kernel
-# cost. The time-major path keeps every large tensor (T, B, ...): the
-# per-direction projection einsums emit time-major directly, direction
-# 1's reversal happens INSIDE the kernel via reversed block index maps,
-# and only tiny tensors (inputs with F<=1000 handled once per encoder,
-# logits with C=44) ever transpose.
-# ---------------------------------------------------------------------------
 
 def bilstm_layer_tm(
     params: Params,
@@ -413,19 +199,22 @@ def bilstm_layer_tm(
     unroll: int = 8,
     remat: bool = False,
 ) -> jax.Array:
-    """Time-major bidirectional LSTM: (T, B, F) -> (T, B, 2H).
+    """Bidirectional LSTM, merge_mode='concat': (T, B, F) -> (T, B, 2H).
 
-    Semantics identical to :func:`bilstm_layer` (same params, same
-    Keras-parity math); only the data layout differs.
+    ``params`` comes from :func:`init_bilstm_params` (direction-stacked).
+    Every large tensor stays time-major: direction 1 projects the
+    time-reversed input (the small F-wide tensor is the one flipped),
+    both directions run as one scan, and only the h stream of direction
+    1 flips back. ``remat=True`` uses the chunked-remat recurrence
+    (memory O(one chunk) instead of O(T) in backward).
     """
     if train and dropout > 0.0 and rng is None:
         raise ValueError("dropout requires an rng key in train mode")
     dir_axis = _dispatch.direction_shard_axis()
     if dir_axis is not None:
         # Tensor-parallel context (ops.dispatch.direction_shard): this
-        # device computes one direction only. The dirsharded kernel has
-        # no remat variant — failing silently would drop a caller's
-        # memory plan (ADVICE r2), so refuse instead.
+        # device computes one direction only. Refuse remat rather than
+        # silently drop a caller's memory plan.
         if remat:
             raise NotImplementedError(
                 "remat is not supported under direction-sharded TP; "
@@ -434,61 +223,91 @@ def bilstm_layer_tm(
         return bilstm_layer_tm_dirsharded(
             params, x_tm, axis=dir_axis, rng=rng, dropout=dropout,
             per_gate=per_gate, train=train, compute_dtype=compute_dtype,
+            unroll=unroll,
         )
-    T, B, F = x_tm.shape
-    W, U, b = params["W"], params["U"], params["b"]
-    H = U.shape[-1]
-    xc = x_tm.astype(compute_dtype)
-    Wc = W.astype(compute_dtype)
-
-    def project(d: int) -> jax.Array:
-        """Direction d's (T, B, 4, H) projection, compute dtype."""
-        if train and dropout > 0.0:
-            keep = 1.0 - dropout
-            if per_gate:
-                mask = (
-                    jax.random.bernoulli(
-                        jax.random.fold_in(rng, d), keep, (4, B, F)
-                    ).astype(compute_dtype)
-                    / keep
-                )
-                xp = jnp.einsum(
-                    "gtbf,fgh->tbgh", xc[None] * mask[:, None], Wc[d],
-                    preferred_element_type=jnp.float32,
-                )
-                return (xp + b[d][None, None]).astype(compute_dtype)
-            mask = (
-                jax.random.bernoulli(
-                    jax.random.fold_in(rng, d), keep, (B, F)
-                ).astype(compute_dtype)
-                / keep
-            )
-            xd = xc * mask[None]
-        else:
-            xd = xc
-        xp = jnp.einsum(
-            "tbf,fgh->tbgh", xd, Wc[d], preferred_element_type=jnp.float32
-        )
-        return (xp + b[d][None, None]).astype(compute_dtype)
-
-    xp0, xp1 = project(0), project(1)
-
-    if _pallas_active():
-        from mgr_tpu.ops.pallas_kernels import pallas_bilstm_tm
-
-        hs0, hs1 = pallas_bilstm_tm(xp0, xp1, U)
-        return jnp.concatenate([hs0, hs1], axis=-1).astype(compute_dtype)
-
-    # XLA fallback: reuse the (D, B, T, ...) scan (direction 1's inputs
-    # flipped on the host, as before). Fine off-TPU where tensors are
-    # small; the Pallas path is the production one.
-    xp = jnp.stack([xp0, jnp.flip(xp1, axis=0)])  # (D, T, B, 4, H)
-    xp_old = jnp.moveaxis(xp, 1, 2)  # (D, B, T, 4, H)
+    x2 = jnp.stack([x_tm, jnp.flip(x_tm, axis=0)], axis=1)  # (T, 2, B, F)
+    xp = _project_tm(
+        x2, params["W"], params["b"], (0, 1), rng=rng, dropout=dropout,
+        per_gate=per_gate, train=train, compute_dtype=compute_dtype,
+    )
     if remat:
-        hs = _recurrent_scan_remat(xp_old, U, compute_dtype)
+        hs = _recurrent_scan_remat(xp, params["U"], compute_dtype)
     else:
-        hs = _recurrent_scan(xp_old, U, compute_dtype, unroll)
-    out = jnp.concatenate(
-        [hs[0], jnp.flip(hs[1], axis=1)], axis=-1
-    )  # (B, T, 2H)
-    return jnp.moveaxis(out, 0, 1).astype(compute_dtype)
+        hs = _recurrent_scan(xp, params["U"], compute_dtype, unroll)
+    return jnp.concatenate(
+        [hs[:, 0], jnp.flip(hs[:, 1], axis=0)], axis=-1
+    ).astype(compute_dtype)
+
+
+def bilstm_layer_tm_dirsharded(
+    params: Params,
+    x_tm: jax.Array,
+    *,
+    axis: str,
+    rng: Optional[jax.Array] = None,
+    dropout: float = 0.0,
+    per_gate: bool = False,
+    train: bool = False,
+    compute_dtype=jnp.bfloat16,
+    unroll: int = 8,
+) -> jax.Array:
+    """Direction-sharded BLSTM for tensor parallelism: (T, B, F) ->
+    (T, B, 2H) inside a ``shard_map`` body whose mesh axis ``axis`` has
+    size 2. Device d computes ONLY direction d (its projection and its
+    scan), then the two h streams all_gather over ``axis`` and concat.
+    The serial per-step chain halves per device with zero per-step
+    collectives; weights stay replicated (an H-sharded variant would
+    psum every one of the T steps).
+
+    Numerics match :func:`bilstm_layer_tm`: same projection math, same
+    per-direction dropout keys (fold_in(rng, d)), same scan step.
+    """
+    if train and dropout > 0.0 and rng is None:
+        raise ValueError("dropout requires an rng key in train mode")
+    d = jax.lax.axis_index(axis)
+    # Dynamic gather of direction d's weights: the gradient scatters
+    # back into slot d of the stacked (2, ...) params, so a psum over
+    # ``axis`` reassembles the full dW/dU/db (train.step's grad rule).
+    xp = _project_tm(
+        x_tm[:, None], params["W"][d][None], params["b"][d][None], (d,),
+        rng=rng, dropout=dropout, per_gate=per_gate, train=train,
+        compute_dtype=compute_dtype,
+    )
+    Ud = params["U"][d][None]
+
+    def scan_one(reverse):
+        def run(xp_, U_):
+            x_in = jnp.flip(xp_, axis=0) if reverse else xp_
+            hs_ = _recurrent_scan(x_in, U_, compute_dtype, unroll)[:, 0]
+            return jnp.flip(hs_, axis=0) if reverse else hs_
+        return run
+
+    hs = jax.lax.cond(d == 0, scan_one(False), scan_one(True), xp, Ud)
+    both = jax.lax.all_gather(hs.astype(compute_dtype), axis)  # (2,T,B,H)
+    return jnp.concatenate([both[0], both[1]], axis=-1)
+
+
+def bilstm_layer(params: Params, x: jax.Array, **kwargs) -> jax.Array:
+    """Batch-major :func:`bilstm_layer_tm`: (B, T, F) -> (B, T, 2H)."""
+    out = bilstm_layer_tm(params, jnp.swapaxes(x, 0, 1), **kwargs)
+    return jnp.swapaxes(out, 0, 1)
+
+
+def lstm_layer(
+    params: Params,
+    x: jax.Array,
+    *,
+    reverse: bool = False,
+    compute_dtype=jnp.bfloat16,
+    unroll: int = 8,
+) -> jax.Array:
+    """Single-direction LSTM (no dropout): (B, T, F) -> (B, T, H)."""
+    xi = jnp.flip(x, axis=1) if reverse else x
+    xp = _project_tm(
+        jnp.swapaxes(xi, 0, 1)[:, None], params["W"][None],
+        params["b"][None], (0,), rng=None, dropout=0.0, per_gate=False,
+        train=False, compute_dtype=compute_dtype,
+    )
+    hs = _recurrent_scan(xp, params["U"][None], compute_dtype, unroll)
+    hs = jnp.swapaxes(hs[:, 0], 0, 1)
+    return jnp.flip(hs, axis=1) if reverse else hs

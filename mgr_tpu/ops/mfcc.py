@@ -21,7 +21,7 @@ HTK-specific conventions honored (they differ from librosa/python_speech_feature
     edge replication.
 
 Everything is jnp and jit-able: framing is one gather, the filterbank
-and DCT are (T, K) @ (K, M) matmuls that XLA tiles onto the MXU.
+and DCT are (T, K) @ (K, M) matmuls in full float32 precision.
 """
 
 from __future__ import annotations
@@ -135,10 +135,12 @@ def static_mfcc(signal: jax.Array, cfg: MFCCConfig = MFCCConfig()) -> jax.Array:
     windowed = pre * window[None, :]
     spec = jnp.abs(jnp.fft.rfft(windowed, n=cfg.fft_size, axis=1))
     fb = jnp.asarray(_mel_filterbank(cfg))
-    mel = jnp.maximum(spec @ fb, 1.0)  # HTK floors filterbank outputs
+    hi = jax.lax.Precision.HIGHEST
+    # HTK floors filterbank outputs
+    mel = jnp.maximum(jnp.matmul(spec, fb, precision=hi), 1.0)
     log_mel = jnp.log(mel)
     dct = jnp.asarray(_dct_matrix(cfg.num_filters, cfg.num_ceps))
-    ceps = log_mel @ dct  # (T, num_ceps + 1), col 0 is C0
+    ceps = jnp.matmul(log_mel, dct, precision=hi)  # (T, num_ceps + 1), C0 first
     c0 = ceps[:, :1]
     cc = ceps[:, 1:] * jnp.asarray(_lifter_weights(cfg.num_ceps, cfg.lifter))
     # HTK MFCC_0 ordering: c1..c12 then C0.

@@ -1,687 +1,231 @@
-"""Pallas TPU kernels: fused BLSTM recurrence (forward + backward).
+"""Pallas CTC kernel for the GPU, through the Triton route.
 
-Why a kernel at all: the pure-`lax.scan` recurrence dispatches ~1900
-tiny steps per layer; XLA pipelines them but each step still round-trips
-HBM for the carry and re-stages the weights. This kernel runs the WHOLE
-scan as one `pallas_call` with a sequential time grid:
+The CTC alpha recursion is independent per sequence, so one Triton
+program owns one sequence and walks all T frames in an in-kernel loop
+with its alpha/phi state vectors in registers: one launch for the whole
+recursion instead of one or more XLA kernels per frame. The backward
+pass is a second kernel that walks time in reverse and applies the
+hand-derived adjoint of each step (``ctc_alpha_loss``'s custom VJP).
 
-  * the recurrent weights stay resident in VMEM for all T steps,
-  * the (D, B, H) h/c carries live in VMEM scratch across grid steps
-    (TPU grids execute sequentially, so scratch is a legal carry),
-  * each step is one MXU dot per direction, (B, Hp) @ (Hp, 4Hp),
-  * the per-step gate projection block xp[t] streams HBM -> VMEM via the
-    BlockSpec pipeline (double-buffered by Pallas automatically).
+State packing: one buffer of width ``Np`` (the next power of two above
+N + 1) holds both chains. Emission scores sit in cols 0..N-1, the blank
+(phi) score in col N, padding above. alpha_phi uses cols 0..N,
+alpha_emit cols 0..N-1. Dead padded states start at -1e5 and never leak
+gradient: their upstream adjoints are identically zero.
 
-The backward pass is a second kernel running the time grid in REVERSE
-(index_map t -> T-1-t). It recomputes the gate pre-activations from the
-saved h-stream instead of storing per-gate activations — 2 extra dots
-per step in exchange for not materializing 4x (T, D, B, H) residuals —
-and emits dz (the gradient w.r.t. the gate projection), from which dW,
-db, dx, and dU reduce to large XLA matmuls outside the kernel.
-
-Both kernels are numerically validated against the pure-JAX scan in
-tests (interpret mode on CPU, compiled on TPU). Hidden sizes are padded
-to multiples of 128 lanes; padded lanes carry zero weights so they decay
-and are sliced off.
-
-This is the TPU-native counterpart of the fused cuDNN-style LSTM kernel
-the reference delegates to through Keras (SURVEY.md §2 "native-equivalent
-obligations", item b).
+Triton has no lane roll, so the one-state shift ``alpha[s - 1]`` is a
+masked load of the previous step's row from the alpha history the
+kernel writes anyway (``a_hist[b, t]``), behind a block barrier. The
+backward pass shifts its step adjoint the other way through a two-slot
+scratch row. No product in either kernel is a matrix product, so
+nothing runs in TF32.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-LANE = 128
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _interpret_default() -> bool:
-    try:
-        return jax.default_backend() != "tpu"
-    except Exception:  # pragma: no cover
-        return True
-
-
-# ---------------------------------------------------------------------------
-# Forward kernel: sequential grid over time chunks; the recurrent weights
-# stay VMEM-resident, carries live in scratch, and each chunk's K steps
-# run in an in-kernel fori_loop so block-pipeline overhead amortizes.
-# ---------------------------------------------------------------------------
-
-LSTM_CHUNK_FWD = 4
-LSTM_CHUNK_BWD = 1  # K=2 overruns VMEM by ~1.4MB at B=128/Hp=512
-
-
-def _fwd_kernel(xp_ref, u_ref, hs_ref, cs_ref, h_scr, c_scr):
-    """One K-step chunk for all D directions.
-
-    xp_ref: (K, D, B, 4Hp) bf16 — gate projections for this chunk
-    u_ref:  (D, Hp, 4Hp) bf16 — recurrent weights, VMEM-resident
-    hs_ref/cs_ref: (K, D, B, Hp) bf16 outputs
-    h_scr/c_scr: (D, B, Hp) f32 carries
-    """
-    c = pl.program_id(0)
-    K = xp_ref.shape[0]
-    D = u_ref.shape[0]
-    Hp = u_ref.shape[1]
-
-    @pl.when(c == 0)
-    def _init():
-        h_scr[...] = jnp.zeros_like(h_scr)
-        c_scr[...] = jnp.zeros_like(c_scr)
-
-    def body(k, carry):
-        h, cc = carry  # (D, B, Hp) f32 each
-        # Issue BOTH directions' MXU dots before any VPU gate math, so
-        # the matrix unit pipelines dot d=1 while the vector unit chews
-        # gates for d=0 (a per-direction loop serialized them).
-        zs = [
-            xp_ref[k, d].astype(jnp.float32) + jnp.dot(
-                h[d].astype(jnp.bfloat16), u_ref[d],
-                preferred_element_type=jnp.float32,
-            )
-            for d in range(D)  # D is static (2)
-        ]
-        hs_list = []
-        cs_list = []
-        for d in range(D):
-            z = zs[d]
-            i = jnp.clip(0.2 * z[:, 0 * Hp : 1 * Hp] + 0.5, 0.0, 1.0)
-            f = jnp.clip(0.2 * z[:, 1 * Hp : 2 * Hp] + 0.5, 0.0, 1.0)
-            g = jnp.tanh(z[:, 2 * Hp : 3 * Hp])
-            o = jnp.clip(0.2 * z[:, 3 * Hp : 4 * Hp] + 0.5, 0.0, 1.0)
-            c_new = f * cc[d] + i * g
-            h_new = o * jnp.tanh(c_new)
-            hs_ref[k, d] = h_new.astype(hs_ref.dtype)
-            cs_ref[k, d] = c_new.astype(cs_ref.dtype)
-            hs_list.append(h_new)
-            cs_list.append(c_new)
-        return jnp.stack(hs_list), jnp.stack(cs_list)
-
-    h, cc = jax.lax.fori_loop(0, K, body, (h_scr[...], c_scr[...]))
-    h_scr[...] = h
-    c_scr[...] = cc
-
-
-def _lstm_scan_fwd_call(
-    xp: jax.Array, U: jax.Array, interpret: bool
-) -> Tuple[jax.Array, jax.Array]:
-    """xp (Tp, D, B, 4Hp) bf16 (Tp divisible by LSTM_CHUNK_FWD),
-    U (D, Hp, 4Hp) bf16 -> hs, cs (Tp, D, B, Hp)."""
-    Tp, D, B, H4 = xp.shape
-    Hp = H4 // 4
-    K = LSTM_CHUNK_FWD
-    out_shape = [
-        jax.ShapeDtypeStruct((Tp, D, B, Hp), jnp.bfloat16),
-        jax.ShapeDtypeStruct((Tp, D, B, Hp), jnp.bfloat16),
-    ]
-    hs, cs = pl.pallas_call(
-        _fwd_kernel,
-        grid=(Tp // K,),
-        in_specs=[
-            pl.BlockSpec((K, D, B, H4), lambda c: (c, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((D, Hp, H4), lambda c: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((K, D, B, Hp), lambda c: (c, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, D, B, Hp), lambda c: (c, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((D, B, Hp), jnp.float32),
-            pltpu.VMEM((D, B, Hp), jnp.float32),
-        ],
-        out_shape=out_shape,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Tp * D * B * Hp * H4,
-            bytes_accessed=(xp.size + 2 * Tp * D * B * Hp) * 2 + U.size * 2,
-            transcendentals=2 * Tp * D * B * Hp,
-        ),
-    )(xp, U)
-    return hs, cs
-
-
-# ---------------------------------------------------------------------------
-# Backward kernel (reverse chunk grid).
-# ---------------------------------------------------------------------------
-
-def _bwd_kernel(
-    xp_ref, hs_ref, hsprev_ref, cs_ref, csprev_ref, dhs_ref, u_ref,
-    dz_ref, dh_scr, dc_scr,
-):
-    """Reverse chunk. hs_ref row k = h AFTER step t = chunk*K + k;
-    hsprev_ref is the previous chunk's block (its last row is the
-    pre-state of this chunk's step 0; masked to zeros at t=0). The
-    recurrent gradients contract dz against U along its OUTPUT (4Hp)
-    axis via dot_general, so no transposed copy of U is needed."""
-    rc = pl.program_id(0)
-    C = pl.num_programs(0)
-    K = dz_ref.shape[0]
-    D = u_ref.shape[0]
-    Hp = u_ref.shape[1]
-
-    @pl.when(rc == 0)
-    def _init():
-        dh_scr[...] = jnp.zeros_like(dh_scr)
-        dc_scr[...] = jnp.zeros_like(dc_scr)
-
-    chunk = C - 1 - rc
-
-    def body(i, carry):
-        dh_c, dc_c = carry  # (D, B, Hp) f32
-        k = K - 1 - i
-        t = chunk * K + k
-        is_t0 = t == 0
-        km1 = jnp.maximum(k - 1, 0)
-
-        dh_out = []
-        dc_out = []
-        for d in range(D):
-            h_prev_blk = jnp.where(
-                k == 0, hsprev_ref[K - 1, d], hs_ref[km1, d]
-            )
-            c_prev_blk = jnp.where(
-                k == 0, csprev_ref[K - 1, d], cs_ref[km1, d]
-            )
-            h_prev = jnp.where(is_t0, 0.0, h_prev_blk.astype(jnp.float32))
-            c_prev = jnp.where(is_t0, 0.0, c_prev_blk.astype(jnp.float32))
-            # Recompute gate pre-activations.
-            z = xp_ref[k, d].astype(jnp.float32) + jnp.dot(
-                h_prev.astype(jnp.bfloat16), u_ref[d],
-                preferred_element_type=jnp.float32,
-            )
-            z_i = z[:, 0 * Hp : 1 * Hp]
-            z_f = z[:, 1 * Hp : 2 * Hp]
-            z_g = z[:, 2 * Hp : 3 * Hp]
-            z_o = z[:, 3 * Hp : 4 * Hp]
-            i_g = jnp.clip(0.2 * z_i + 0.5, 0.0, 1.0)
-            f_g = jnp.clip(0.2 * z_f + 0.5, 0.0, 1.0)
-            g_g = jnp.tanh(z_g)
-            o_g = jnp.clip(0.2 * z_o + 0.5, 0.0, 1.0)
-
-            c_t = cs_ref[k, d].astype(jnp.float32)
-            tanh_c = jnp.tanh(c_t)
-
-            dh = dhs_ref[k, d].astype(jnp.float32) + dh_c[d]
-            do = dh * tanh_c
-            dc = dc_c[d] + dh * o_g * (1.0 - tanh_c * tanh_c)
-            di = dc * g_g
-            df = dc * c_prev
-            dg = dc * i_g
-
-            def hs_grad(zx):
-                # d/dx clip(0.2x+0.5, 0, 1) = 0.2 inside (-2.5, 2.5)
-                return jnp.where((zx > -2.5) & (zx < 2.5), 0.2, 0.0)
-
-            dz = jnp.concatenate(
-                [
-                    di * hs_grad(z_i),
-                    df * hs_grad(z_f),
-                    dg * (1.0 - g_g * g_g),
-                    do * hs_grad(z_o),
-                ],
-                axis=1,
-            )
-            dz_ref[k, d] = dz.astype(dz_ref.dtype)
-
-            # dh_prev = dz @ U^T, contracted on U's output axis.
-            dh_out.append(
-                jax.lax.dot_general(
-                    dz.astype(jnp.bfloat16), u_ref[d],
-                    dimension_numbers=(((1,), (1,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )
-            )
-            dc_out.append(dc * f_g)
-        return jnp.stack(dh_out), jnp.stack(dc_out)
-
-    dh, dc = jax.lax.fori_loop(0, K, body, (dh_scr[...], dc_scr[...]))
-    dh_scr[...] = dh
-    dc_scr[...] = dc
-
-
-def _lstm_scan_bwd_call(
-    xp: jax.Array, hs: jax.Array, cs: jax.Array, dhs: jax.Array,
-    U: jax.Array, interpret: bool,
-) -> jax.Array:
-    """Returns dz (Tp, D, B, 4Hp) bf16."""
-    Tp, D, B, H4 = xp.shape
-    Hp = H4 // 4
-    K = LSTM_CHUNK_BWD
-    C = Tp // K
-
-    def rev(c):
-        return (C - 1 - c, 0, 0, 0)
-
-    def rev_prev_chunk(c):
-        return (jnp.maximum(C - 1 - c - 1, 0), 0, 0, 0)
-
-    (dz,) = pl.pallas_call(
-        _bwd_kernel,
-        grid=(C,),
-        in_specs=[
-            pl.BlockSpec((K, D, B, H4), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, D, B, Hp), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, D, B, Hp), rev_prev_chunk,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, D, B, Hp), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, D, B, Hp), rev_prev_chunk,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, D, B, Hp), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((D, Hp, H4), lambda c: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((K, D, B, H4), rev, memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((D, B, Hp), jnp.float32),
-            pltpu.VMEM((D, B, Hp), jnp.float32),
-        ],
-        out_shape=[jax.ShapeDtypeStruct((Tp, D, B, H4), jnp.bfloat16)],
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=4 * Tp * D * B * Hp * H4,
-            bytes_accessed=(2 * xp.size + 4 * Tp * D * B * Hp) * 2,
-            transcendentals=2 * Tp * D * B * Hp,
-        ),
-    )(xp, hs, hs, cs, cs, dhs, U)
-    return dz
-
-
-# ---------------------------------------------------------------------------
-# custom_vjp wrapper: drop-in recurrent scan.
-# ---------------------------------------------------------------------------
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
-def _scan_core(xp, U, interpret):
-    hs, _ = _lstm_scan_fwd_call(xp, U, interpret)
-    return hs
-
-
-def _scan_core_fwd(xp, U, interpret):
-    hs, cs = _lstm_scan_fwd_call(xp, U, interpret)
-    return hs, (xp, U, hs, cs)
-
-
-def _scan_core_bwd(interpret, res, dhs):
-    xp, U, hs, cs = res
-    dz = _lstm_scan_bwd_call(
-        xp, hs, cs, dhs.astype(jnp.bfloat16), U, interpret
-    )
-    # h_prev stream: zeros at t=0, hs[:-1] after.
-    h_prev = jnp.concatenate([jnp.zeros_like(hs[:1]), hs[:-1]], axis=0)
-    # dU = sum_t h_{t-1}^T dz_t  — one big batched matmul on the MXU.
-    dU = jnp.einsum(
-        "tdbh,tdbk->dhk", h_prev.astype(jnp.bfloat16), dz,
-        preferred_element_type=jnp.float32,
-    )
-    return dz.astype(xp.dtype), dU.astype(U.dtype)
-
-
-_scan_core.defvjp(_scan_core_fwd, _scan_core_bwd)
-
-
-def pallas_recurrent_scan(
-    xp: jax.Array, U: jax.Array, *, interpret: bool | None = None
-) -> jax.Array:
-    """Drop-in for mgr_tpu.ops.lstm._recurrent_scan.
-
-    xp: (D, B, T, 4, H) gate projections (any float dtype)
-    U:  (D, H, 4, H) recurrent weights
-    -> h stream (D, B, T, H) float32.
-
-    Pads H to a multiple of 128 lanes and T to a multiple of the chunk
-    sizes (padded steps carry zero projections, whose outputs are
-    sliced off and whose gradients vanish), runs the fused kernels, and
-    slices back. Differentiable w.r.t. both arguments via the custom
-    VJP.
-    """
-    if interpret is None:
-        interpret = _interpret_default()
-    D, B, T, _, H = xp.shape
-    Hp = _round_up(H, LANE)
-    pad = Hp - H
-    Tp = _round_up(T, max(LSTM_CHUNK_FWD, LSTM_CHUNK_BWD))
-
-    if pad:
-        xp = jnp.pad(xp, ((0, 0), (0, 0), (0, 0), (0, 0), (0, pad)))
-        U = jnp.pad(U, ((0, 0), (0, pad), (0, 0), (0, pad)))
-
-    # (D, B, T, 4, Hp) -> time-major fused-gate (Tp, D, B, 4Hp)
-    xp_tm = jnp.moveaxis(xp, 2, 0).reshape(T, D, B, 4 * Hp)
-    if Tp != T:
-        xp_tm = jnp.pad(xp_tm, ((0, Tp - T), (0, 0), (0, 0), (0, 0)))
-    U_f = U.reshape(D, Hp, 4 * Hp)
-
-    hs = _scan_core(
-        xp_tm.astype(jnp.bfloat16), U_f.astype(jnp.bfloat16), interpret
-    )  # (Tp, D, B, Hp)
-    hs = jnp.moveaxis(hs[:T], 0, 2)  # (D, B, T, Hp)
-    if pad:
-        hs = hs[..., :H]
-    return hs
-
-
-# ===========================================================================
-# Pallas CTC: fused alpha recursion (forward) + hand-derived adjoint
-# (backward). Replaces the lax.scan phi/emit recursion in mgr_tpu.ops.ctc
-# for the training hot path: profiling on v5e showed the 1898-step CTC
-# scan costing ~200 ms/step at B=128 — 15x the whole Pallas BLSTM stack —
-# because each scan iteration is a tiny (B, 2N+1) vector op drowned in
-# loop overhead.
-#
-# Kernel shape: a sequential grid over TIME CHUNKS of CTC_TIME_CHUNK
-# steps; each grid step streams a (K, B, Np) block and walks its K rows
-# with an in-kernel fori_loop, so the per-step pipeline overhead (block
-# switch + DMA handshake) amortizes K-fold. Carries live in VMEM
-# scratch across grid steps.
-#
-# State packing: one lane-padded buffer of width Np >= N+1 holds both
-# chains; emission scores live in cols 0..N-1, the blank (phi) score in
-# col N, padding above. alpha_phi uses cols 0..N, alpha_emit cols
-# 0..N-1; dead padded states start at -1e5 and provably never leak
-# gradient (their upstream adjoints are identically zero).
-# ===========================================================================
+from jax.experimental.pallas import triton as plgpu
 
 _CTC_NEG = -1.0e5
-# 8 steps/block: the backward kernel streams three (B, K, Np) f32 blocks
-# plus the output block, double-buffered — K=16 at B=128/Np=256 overruns
-# the 16 MB VMEM budget, K=8 fits with headroom.
-CTC_TIME_CHUNK = 8
 
 
-def _ctc_fwd_kernel(lp_ref, skip_ref, len_ref, out_a_ref, out_p_ref,
-                    a_scr, p_scr, *, n_labels: int):
-    c = pl.program_id(0)
-    B, K, Np = lp_ref.shape
+def state_width(n_labels: int) -> int:
+    """Packed state width: the next power of two >= n_labels + 1."""
+    return 1 << int(n_labels).bit_length()
 
-    col = jax.lax.broadcasted_iota(jnp.int32, (B, Np), 1)
 
-    @pl.when(c == 0)
-    def _init():
-        a_scr[...] = jnp.full((B, Np), _CTC_NEG, jnp.float32)
-        p_scr[...] = jnp.where(col == 0, 0.0, _CTC_NEG)
+def _num_warps(np_: int) -> int:
+    # The recursion is latency-bound: few threads per sequence keep the
+    # per-step barrier cheap. At Np=256 four warps measured fastest on
+    # an H100 (4.6 ms against 5.0 with two and 8.1 with one, fwd+bwd at
+    # B=128, T=1898).
+    return max(1, min(4, np_ // 64))
 
-    skip = skip_ref[...]
-    lens = len_ref[...]
 
-    def body(k, carry):
+def _lse2(x, y):
+    m = jnp.maximum(x, y)
+    return m + jnp.log(jnp.exp(x - m) + jnp.exp(y - m))
+
+
+def _lse3(x, y, z):
+    m = jnp.maximum(jnp.maximum(x, y), z)
+    return m + jnp.log(jnp.exp(x - m) + jnp.exp(y - m) + jnp.exp(z - m))
+
+
+def _barrier(interpret: bool) -> None:
+    if not interpret:
+        plgpu.debug_barrier()
+
+
+def _ctc_fwd_kernel(lp_ref, skip_ref, len_ref, a_ref, p_ref, *,
+                    n_labels: int, interpret: bool):
+    """One sequence. a_ref/p_ref[b, t] hold the state BEFORE frame t
+    (row 0 is the initial state, row T the final one)."""
+    b = pl.program_id(0)
+    T, Np = lp_ref.shape[1], lp_ref.shape[2]
+    col = jax.lax.broadcasted_iota(jnp.int32, (Np,), 0)
+    left = jnp.maximum(col - 1, 0)
+    skip = skip_ref[b, :]
+    length = len_ref[b]
+
+    a0 = jnp.full((Np,), _CTC_NEG, jnp.float32)
+    p0 = jnp.where(col == 0, 0.0, _CTC_NEG).astype(jnp.float32)
+    a_ref[b, 0, :] = a0
+    p_ref[b, 0, :] = p0
+
+    def body(t, carry):
         a, p = carry
-        t = c * K + k
-        lp = lp_ref[:, k]
-        lpb = lp[:, n_labels : n_labels + 1]  # blank scores, (B, 1)
+        _barrier(interpret)  # row t is visible to every thread
+        shift_a = plgpu.load(a_ref.at[b, t, left], mask=col >= 1,
+                             other=_CTC_NEG)
+        lp = lp_ref[b, t, :]
+        lpb = lp_ref[b, t, n_labels]
+        new_a = _lse3(a, p, shift_a + skip) + lp
+        new_p = _lse2(p, shift_a) + lpb
+        valid = t < length
+        a = jnp.where(valid, new_a, a)
+        p = jnp.where(valid, new_p, p)
+        a_ref[b, t + 1, :] = a
+        p_ref[b, t + 1, :] = p
+        return a, p
 
-        shift_a = jnp.where(col == 0, _CTC_NEG, pltpu.roll(a, 1, axis=1))
-        sa = shift_a + skip
-        y_pre_emit = jnp.logaddexp(jnp.logaddexp(a, p), sa)
-        new_a = y_pre_emit + lp
-
-        y_pre_phi = jnp.logaddexp(p, shift_a)
-        new_p = y_pre_phi + lpb
-
-        valid = t < lens
-        a_next = jnp.where(valid, new_a, a)
-        p_next = jnp.where(valid, new_p, p)
-        out_a_ref[:, k] = a_next
-        out_p_ref[:, k] = p_next
-        return (a_next, p_next)
-
-    a, p = jax.lax.fori_loop(0, K, body, (a_scr[...], p_scr[...]))
-    a_scr[...] = a
-    p_scr[...] = p
+    jax.lax.fori_loop(0, T, body, (a0, p0))
 
 
-def _ctc_pallas_fwd(lp_full, skip_pen, len_tile, n_labels, interpret):
-    """lp_full (B, Tp, Np), Tp a multiple of CTC_TIME_CHUNK.
-
-    Batch-major layout end to end: the grid blocks the MIDDLE (time)
-    axis, so neither the packing matmul nor its VJP ever transposes the
-    big activation (a (T,B,N)-major layout pushed XLA into a pathological
-    fused transpose+matmul costing ~170 ms at B=128)."""
-    B, Tp, Np = lp_full.shape
-    K = CTC_TIME_CHUNK
-    kern = functools.partial(_ctc_fwd_kernel, n_labels=n_labels)
-    out_a, out_p = pl.pallas_call(
-        kern,
-        grid=(Tp // K,),
-        in_specs=[
-            pl.BlockSpec((B, K, Np), lambda c: (0, c, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, Np), lambda c: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, Np), lambda c: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((B, K, Np), lambda c: (0, c, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, K, Np), lambda c: (0, c, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((B, Np), jnp.float32),
-            pltpu.VMEM((B, Np), jnp.float32),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, Tp, Np), jnp.float32),
-            jax.ShapeDtypeStruct((B, Tp, Np), jnp.float32),
-        ],
-        interpret=interpret,
-    )(lp_full, skip_pen, len_tile)
-    return out_a, out_p
-
-
-def _ctc_bwd_kernel(lp_ref, a_ref, aprev_ref, p_ref, pprev_ref, skip_ref,
-                    len_ref, ga_ref, gp_ref, dlp_ref, da_scr, dp_scr,
-                    *, n_labels: int):
-    """Reverse chunk. a_ref[:, k] = alpha AFTER step t = chunk*K + k;
-    aprev_ref is the PREVIOUS chunk's block, whose last row is the
-    pre-state of this chunk's step 0 (garbage for chunk 0, where is_t0
-    masks it to the initial alphas). A whole-chunk block is used because
-    TPU tiling forbids single-row blocks on the sublane axis."""
-    rc = pl.program_id(0)
-    C = pl.num_programs(0)
-    B, K, Np = dlp_ref.shape
-    col = jax.lax.broadcasted_iota(jnp.int32, (B, Np), 1)
-
-    @pl.when(rc == 0)
-    def _init():
-        da_scr[...] = ga_ref[...]
-        dp_scr[...] = gp_ref[...]
-
-    skip = skip_ref[...]
-    lens = len_ref[...]
-    chunk = C - 1 - rc
-
-    init_a = jnp.full((B, Np), _CTC_NEG, jnp.float32)
-    init_p = jnp.where(col == 0, 0.0, _CTC_NEG)
+def _ctc_bwd_kernel(lp_ref, skip_ref, len_ref, a_ref, p_ref, ga_ref, gp_ref,
+                    dlp_ref, g_scr, *, n_labels: int, interpret: bool):
+    """Reverse walk. Carries are the adjoints of the state after frame t;
+    each step emits d loss / d lp[t] and the adjoint of the state
+    before it."""
+    b = pl.program_id(0)
+    T, Np = lp_ref.shape[1], lp_ref.shape[2]
+    col = jax.lax.broadcasted_iota(jnp.int32, (Np,), 0)
+    left = jnp.maximum(col - 1, 0)
+    right = jnp.minimum(col + 1, Np - 1)
+    skip = skip_ref[b, :]
+    length = len_ref[b]
 
     def body(i, carry):
-        da_next, dp_next = carry
-        k = K - 1 - i
-        t = chunk * K + k
+        da, dp = carry
+        t = T - 1 - i
+        a_prev = a_ref[b, t, :]
+        p_prev = p_ref[b, t, :]
+        a_cur = a_ref[b, t + 1, :]
+        p_cur = p_ref[b, t + 1, :]
+        shift_a = plgpu.load(a_ref.at[b, t, left], mask=col >= 1,
+                             other=_CTC_NEG)
+        lp = lp_ref[b, t, :]
+        lpb = lp_ref[b, t, n_labels]
 
-        km1 = jnp.maximum(k - 1, 0)
-        a_in = jnp.where(k == 0, aprev_ref[:, K - 1], a_ref[:, km1])
-        p_in = jnp.where(k == 0, pprev_ref[:, K - 1], p_ref[:, km1])
-        is_t0 = t == 0
-        a_prev = jnp.where(is_t0, init_a, a_in)
-        p_prev = jnp.where(is_t0, init_p, p_in)
-        a_cur = a_ref[:, k]
-        p_cur = p_ref[:, k]
-        lp = lp_ref[:, k]
-        lpb = lp[:, n_labels : n_labels + 1]
+        y_emit = a_cur - lp  # logsumexp of the emit sources
+        y_phi = p_cur - lpb
+        da_prev = da * jnp.exp(a_prev - y_emit)
+        dp_prev = da * jnp.exp(p_prev - y_emit) + dp * jnp.exp(p_prev - y_phi)
+        # Adjoint reaching alpha[s - 1] through the shifted sources; it
+        # lands one state to the left.
+        g = (da * jnp.exp(shift_a + skip - y_emit)
+             + dp * jnp.exp(shift_a - y_phi))
+        slot = jax.lax.rem(i, 2)
+        g_scr[b, slot, :] = g
+        _barrier(interpret)
+        da_prev = da_prev + plgpu.load(g_scr.at[b, slot, right],
+                                       mask=col < Np - 1, other=0.0)
 
-        shift_a = jnp.where(
-            col == 0, _CTC_NEG, pltpu.roll(a_prev, 1, axis=1)
-        )
-        sa = shift_a + skip
-        y_pre_emit = a_cur - lp
-        y_pre_phi = p_cur - lpb
+        dlp = jnp.where(col == n_labels, jnp.sum(dp), da)
+        valid = t < length
+        dlp_ref[b, t, :] = jnp.where(valid, dlp, 0.0)
+        return jnp.where(valid, da_prev, da), jnp.where(valid, dp_prev, dp)
 
-        w_a = jnp.exp(a_prev - y_pre_emit)
-        w_p = jnp.exp(p_prev - y_pre_emit)
-        w_sa = jnp.exp(sa - y_pre_emit)
-
-        da_prev = da_next * w_a
-        dp_prev = da_next * w_p
-        dsa = da_next * w_sa
-        # adjoint of the right-shift: scatter one column left
-        # (left-roll = right-roll by Np-1; pltpu.roll needs shift >= 0).
-        da_prev = da_prev + jnp.where(
-            col == Np - 1, 0.0, pltpu.roll(dsa, Np - 1, axis=1)
-        )
-
-        w_pp = jnp.exp(p_prev - y_pre_phi)
-        w_es = jnp.exp(shift_a - y_pre_phi)
-        dp_prev = dp_prev + dp_next * w_pp
-        des = dp_next * w_es
-        da_prev = da_prev + jnp.where(
-            col == Np - 1, 0.0, pltpu.roll(des, Np - 1, axis=1)
-        )
-
-        dlpb = jnp.sum(dp_next, axis=1, keepdims=True)
-        dlp = jnp.where(col == n_labels, dlpb, da_next)
-
-        valid = t < lens
-        dlp_ref[:, k] = jnp.where(valid, dlp, 0.0)
-        return (
-            jnp.where(valid, da_prev, da_next),
-            jnp.where(valid, dp_prev, dp_next),
-        )
-
-    da, dp = jax.lax.fori_loop(0, K, body, (da_scr[...], dp_scr[...]))
-    da_scr[...] = da
-    dp_scr[...] = dp
+    jax.lax.fori_loop(0, T, body, (ga_ref[b, :], gp_ref[b, :]))
 
 
-def _ctc_pallas_bwd(lp_full, out_a, out_p, skip_pen, len_tile, ga, gp,
-                    n_labels, interpret):
-    B, Tp, Np = lp_full.shape
-    K = CTC_TIME_CHUNK
-    C = Tp // K
-
-    def rev(c):
-        return (0, C - 1 - c, 0)
-
-    def rev_prev_chunk(c):
-        # previous chunk's whole block (its last row is this chunk's
-        # pre-state); clamped to chunk 0 for chunk 0 (masked by is_t0).
-        return (0, jnp.maximum(C - 1 - c - 1, 0), 0)
-
-    def fixed(c):
-        return (0, 0)
-
-    kern = functools.partial(_ctc_bwd_kernel, n_labels=n_labels)
-    (dlp,) = pl.pallas_call(
-        kern,
-        grid=(C,),
-        in_specs=[
-            pl.BlockSpec((B, K, Np), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, K, Np), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, K, Np), rev_prev_chunk,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, K, Np), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, K, Np), rev_prev_chunk,
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, Np), fixed, memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, Np), fixed, memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, Np), fixed, memory_space=pltpu.VMEM),
-            pl.BlockSpec((B, Np), fixed, memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((B, K, Np), rev, memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((B, Np), jnp.float32),
-            pltpu.VMEM((B, Np), jnp.float32),
-        ],
-        out_shape=[jax.ShapeDtypeStruct((B, Tp, Np), jnp.float32)],
+def _call(kernel, out_shape, B, Np, interpret):
+    return pl.pallas_call(
+        kernel,
+        out_shape=out_shape,
+        grid=(B,),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_num_warps(Np),
+                                             num_stages=1),
         interpret=interpret,
-    )(lp_full, out_a, out_a, out_p, out_p, skip_pen, len_tile, ga, gp)
+    )
+
+
+def _ctc_pallas_fwd(lp_full, skip_pen, lengths, n_labels, interpret):
+    B, T, Np = lp_full.shape
+    hist = jax.ShapeDtypeStruct((B, T + 1, Np), jnp.float32)
+    kern = functools.partial(_ctc_fwd_kernel, n_labels=n_labels,
+                             interpret=interpret)
+    return _call(kern, (hist, hist), B, Np, interpret)(
+        lp_full, skip_pen, lengths)
+
+
+def _ctc_pallas_bwd(lp_full, skip_pen, lengths, a_hist, p_hist, ga, gp,
+                    n_labels, interpret):
+    B, T, Np = lp_full.shape
+    kern = functools.partial(_ctc_bwd_kernel, n_labels=n_labels,
+                             interpret=interpret)
+    dlp, _ = _call(
+        kern,
+        (jax.ShapeDtypeStruct((B, T, Np), jnp.float32),
+         jax.ShapeDtypeStruct((B, 2, Np), jnp.float32)),
+        B, Np, interpret,
+    )(lp_full, skip_pen, lengths, a_hist, p_hist, ga, gp)
     return dlp
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
-def ctc_alpha_loss(lp_full, skip_pen, len_tile, label_lengths, n_labels,
-                   interpret):
-    loss, _ = _ctc_alpha_loss_fwd(
-        lp_full, skip_pen, len_tile, label_lengths, n_labels, interpret
-    )
-    return loss
-
-
-def _ctc_final_loss(out_a, out_p, label_lengths):
-    B = out_a.shape[0]
+def _ctc_final(a_hist, p_hist, label_lengths):
+    B = a_hist.shape[0]
     idx = jnp.arange(B)
-    final_a = out_a[:, -1]  # (B, Np) — frozen at each sequence's length
-    final_p = out_p[:, -1]
-    ll = label_lengths.astype(jnp.int32)
-    phi_end = final_p[idx, ll]
+    ll = label_lengths
+    phi_end = p_hist[:, -1][idx, ll]
     emit_end = jnp.where(
-        ll > 0, final_a[idx, jnp.maximum(ll - 1, 0)], _CTC_NEG
+        ll > 0, a_hist[:, -1][idx, jnp.maximum(ll - 1, 0)], _CTC_NEG
     )
     logp = jnp.logaddexp(phi_end, emit_end)
     return -logp, (phi_end, emit_end, logp)
 
 
-def _ctc_alpha_loss_fwd(lp_full, skip_pen, len_tile, label_lengths,
-                        n_labels, interpret):
-    out_a, out_p = _ctc_pallas_fwd(
-        lp_full, skip_pen, len_tile, n_labels, interpret
-    )
-    loss, (phi_end, emit_end, logp) = _ctc_final_loss(
-        out_a, out_p, label_lengths
-    )
-    res = (lp_full, skip_pen, len_tile, label_lengths, out_a, out_p,
+@functools.partial(jax.custom_vjp, nondiff_argnums=(4, 5))
+def ctc_alpha_loss(lp_full, skip_pen, lengths, label_lengths, n_labels,
+                   interpret):
+    loss, _ = _ctc_alpha_loss_fwd(lp_full, skip_pen, lengths, label_lengths,
+                                  n_labels, interpret)
+    return loss
+
+
+def _ctc_alpha_loss_fwd(lp_full, skip_pen, lengths, label_lengths, n_labels,
+                        interpret):
+    a_hist, p_hist = _ctc_pallas_fwd(lp_full, skip_pen, lengths, n_labels,
+                                     interpret)
+    loss, (phi_end, emit_end, logp) = _ctc_final(a_hist, p_hist,
+                                                 label_lengths)
+    res = (lp_full, skip_pen, lengths, label_lengths, a_hist, p_hist,
            phi_end, emit_end, logp)
     return loss, res
 
 
 def _ctc_alpha_loss_bwd(n_labels, interpret, res, dloss):
-    (lp_full, skip_pen, len_tile, label_lengths, out_a, out_p,
+    (lp_full, skip_pen, lengths, label_lengths, a_hist, p_hist,
      phi_end, emit_end, logp) = res
-    B, Tp, Np = lp_full.shape
-    ll = label_lengths.astype(jnp.int32)
+    Np = lp_full.shape[2]
+    ll = label_lengths
     # d loss_b / d phi_end = -exp(phi_end - logp); same for emit_end.
-    g_phi = -dloss * jnp.exp(phi_end - logp)  # (B,)
-    g_emit = jnp.where(
-        ll > 0, -dloss * jnp.exp(emit_end - logp), 0.0
-    )
-    onehot_p = jax.nn.one_hot(ll, Np, dtype=jnp.float32)
-    onehot_a = jnp.where(
-        (ll > 0)[:, None],
-        jax.nn.one_hot(jnp.maximum(ll - 1, 0), Np, dtype=jnp.float32),
-        0.0,
-    )
-    gp = g_phi[:, None] * onehot_p
-    ga = g_emit[:, None] * onehot_a
-    dlp = _ctc_pallas_bwd(
-        lp_full, out_a, out_p, skip_pen, len_tile, ga, gp,
-        n_labels, interpret,
-    )
-    zeros_i = jax.tree.map(
-        lambda x: np.zeros(x.shape, dtype=jax.dtypes.float0),
-        (len_tile, label_lengths),
-    )
-    return (dlp, jnp.zeros_like(skip_pen), zeros_i[0], zeros_i[1])
+    g_phi = -dloss * jnp.exp(phi_end - logp)
+    g_emit = jnp.where(ll > 0, -dloss * jnp.exp(emit_end - logp), 0.0)
+    gp = g_phi[:, None] * jax.nn.one_hot(ll, Np, dtype=jnp.float32)
+    ga = g_emit[:, None] * jax.nn.one_hot(jnp.maximum(ll - 1, 0), Np,
+                                          dtype=jnp.float32)
+    dlp = _ctc_pallas_bwd(lp_full, skip_pen, lengths, a_hist, p_hist, ga, gp,
+                          n_labels, interpret)
+    zeros_i = tuple(np.zeros(x.shape, dtype=jax.dtypes.float0)
+                    for x in (lengths, label_lengths))
+    return (dlp, jnp.zeros_like(skip_pen)) + zeros_i
 
 
 ctc_alpha_loss.defvjp(_ctc_alpha_loss_fwd, _ctc_alpha_loss_bwd)
@@ -689,20 +233,17 @@ ctc_alpha_loss.defvjp(_ctc_alpha_loss_fwd, _ctc_alpha_loss_bwd)
 
 def pallas_ctc_loss(
     log_probs, labels, input_lengths, label_lengths, blank=None,
-    *, interpret=None, time_major=False,
+    *, interpret: bool = False, time_major: bool = False,
 ):
-    """Drop-in CTC loss on the fused Pallas recursion.
+    """CTC loss on the Triton kernels; same contract as
+    :func:`mgr_tpu.ops.ctc.ctc_loss`.
 
-    Same contract as mgr_tpu.ops.ctc.ctc_loss: (B, T, K) log-probs,
-    -1-padded labels, per-sequence lengths, blank defaults to K-1.
-    Differentiable w.r.t. ``log_probs`` via the custom VJP; the
-    emission gather/scatter is one batch-major MXU einsum whose VJP is
-    a clean batched matmul (no transposes of the big activation). Time
-    pads to a multiple of CTC_TIME_CHUNK (padded frames are inert: the
-    valid mask freezes the carries there).
+    Takes (B, T, K) log-probs, or (T, B, K) with ``time_major``.
+    Differentiable w.r.t. ``log_probs`` through the custom VJP. The
+    emission gather is one batched einsum in full float32 precision
+    whose layout change absorbs ``time_major``. ``interpret=True`` runs
+    the kernels in the Pallas interpreter (CPU tests).
     """
-    if interpret is None:
-        interpret = _interpret_default()
     if time_major:
         T, B, K = log_probs.shape
     else:
@@ -715,625 +256,28 @@ def pallas_ctc_loss(
     input_lengths = input_lengths.astype(jnp.int32).reshape(B)
     label_lengths = label_lengths.astype(jnp.int32).reshape(B)
 
-    Np = _round_up(N + 1, LANE)
+    Np = state_width(N)
     onehot = jax.nn.one_hot(labels_s, K, dtype=jnp.float32)  # (B, N, K)
+    hi = jax.lax.Precision.HIGHEST
     if time_major:
-        # The layout change rides the matmul epilogue; the only true
-        # transpose is the tiny (T, B) blank column.
-        lp_emit = jnp.einsum("tbk,bnk->btn", log_probs, onehot)
+        lp_emit = jnp.einsum("tbk,bnk->btn", log_probs, onehot, precision=hi)
         lp_phi = jnp.swapaxes(log_probs[:, :, blank], 0, 1)  # (B, T)
     else:
-        lp_emit = jnp.einsum("btk,bnk->btn", log_probs, onehot)  # (B, T, N)
-        lp_phi = log_probs[:, :, blank]  # (B, T)
-    pad_tail = jnp.full((B, T, Np - N - 1), _CTC_NEG, jnp.float32)
+        lp_emit = jnp.einsum("btk,bnk->btn", log_probs, onehot, precision=hi)
+        lp_phi = log_probs[:, :, blank]
     lp_full = jnp.concatenate(
-        [lp_emit, lp_phi[:, :, None], pad_tail], axis=2
+        [lp_emit, lp_phi[:, :, None],
+         jnp.full((B, T, Np - N - 1), _CTC_NEG, jnp.float32)],
+        axis=2,
     )
-    Tp = _round_up(T, CTC_TIME_CHUNK)
-    if Tp != T:
-        lp_full = jnp.pad(lp_full, ((0, 0), (0, Tp - T), (0, 0)))
 
     same = labels_s[:, 1:] == labels_s[:, :-1]  # (B, N-1)
-    skip_core = jnp.concatenate(
-        [jnp.full((B, 1), _CTC_NEG), jnp.where(same, _CTC_NEG, 0.0)],
-        axis=1,
-    )  # col 0 has no predecessor two back
     skip_pen = jnp.concatenate(
-        [skip_core, jnp.zeros((B, Np - N), jnp.float32)], axis=1
-    )
-    len_tile = jnp.broadcast_to(
-        input_lengths[:, None], (B, Np)
-    ).astype(jnp.int32)
-
-    return ctc_alpha_loss(
-        lp_full, skip_pen, len_tile, label_lengths, N, interpret
-    )
-
-
-# ===========================================================================
-# Time-major BLSTM kernels (layout-free fast path).
-#
-# Profiling showed the (D, B, T, ...) layout spent ~31 ms transposing the
-# gate projections into time-major and ~27 ms transposing the h-stream
-# back — 3.5x the kernel's own cost. These kernels keep EVERYTHING
-# time-major and handle the backward direction by reading/writing its
-# blocks with REVERSED index maps, so no flip or transpose of any large
-# tensor ever materializes:
-#   * per-direction gate projections xp0/xp1 (Tp, B, 4Hp) come straight
-#     out of the per-direction einsums (epilogue handles the layout);
-#   * direction 1 scans original time backwards by streaming its blocks
-#     with a reversed chunk map and walking rows in reverse in-kernel;
-#     its outputs are written back at ORIGINAL time positions;
-#   * the backward kernel walks d0 in reverse and d1 forward (each
-#     direction's own adjoint order) in the same grid.
-# ===========================================================================
-
-LSTM_TM_CHUNK_FWD = 2
-LSTM_TM_CHUNK_BWD = 1
-
-
-def _tm_fwd_kernel(xp0_ref, xp1_ref, u_ref, hs0_ref, hs1_ref,
-                   cs0_ref, cs1_ref, h_scr, c_scr):
-    """xp0 blocks stream forward; xp1 blocks stream with a reversed chunk
-    map (rows also consumed in reverse), so direction 1 scans original
-    time T-1 -> 0. Outputs land at original time positions."""
-    c = pl.program_id(0)
-    K = xp0_ref.shape[0]
-    Hp = u_ref.shape[1]
-
-    @pl.when(c == 0)
-    def _init():
-        h_scr[...] = jnp.zeros_like(h_scr)
-        c_scr[...] = jnp.zeros_like(c_scr)
-
-    def gates(z, cc):
-        i = jnp.clip(0.2 * z[:, 0 * Hp : 1 * Hp] + 0.5, 0.0, 1.0)
-        f = jnp.clip(0.2 * z[:, 1 * Hp : 2 * Hp] + 0.5, 0.0, 1.0)
-        g = jnp.tanh(z[:, 2 * Hp : 3 * Hp])
-        o = jnp.clip(0.2 * z[:, 3 * Hp : 4 * Hp] + 0.5, 0.0, 1.0)
-        c_new = f * cc + i * g
-        return o * jnp.tanh(c_new), c_new
-
-    def body(k, carry):
-        h, cc = carry  # (2, B, Hp) f32
-        z0 = xp0_ref[k].astype(jnp.float32) + jnp.dot(
-            h[0].astype(jnp.bfloat16), u_ref[0],
-            preferred_element_type=jnp.float32,
-        )
-        h0, c0 = gates(z0, cc[0])
-        hs0_ref[k] = h0.astype(hs0_ref.dtype)
-        cs0_ref[k] = c0.astype(cs0_ref.dtype)
-
-        kr = K - 1 - k
-        z1 = xp1_ref[kr].astype(jnp.float32) + jnp.dot(
-            h[1].astype(jnp.bfloat16), u_ref[1],
-            preferred_element_type=jnp.float32,
-        )
-        h1, c1 = gates(z1, cc[1])
-        hs1_ref[kr] = h1.astype(hs1_ref.dtype)
-        cs1_ref[kr] = c1.astype(cs1_ref.dtype)
-        return jnp.stack([h0, h1]), jnp.stack([c0, c1])
-
-    h, cc = jax.lax.fori_loop(0, K, body, (h_scr[...], c_scr[...]))
-    h_scr[...] = h
-    c_scr[...] = cc
-
-
-def _tm_fwd_call(xp0, xp1, U, interpret):
-    """xp0/xp1 (Tp, B, 4Hp) bf16, U (2, Hp, 4Hp) -> hs0, hs1, cs0, cs1."""
-    Tp, B, H4 = xp0.shape
-    Hp = H4 // 4
-    K = LSTM_TM_CHUNK_FWD
-    C = Tp // K
-
-    fwd = lambda c: (c, 0, 0)
-    rev = lambda c: (C - 1 - c, 0, 0)
-    outs = pl.pallas_call(
-        _tm_fwd_kernel,
-        grid=(C,),
-        in_specs=[
-            pl.BlockSpec((K, B, H4), fwd, memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, B, H4), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((2, Hp, H4), lambda c: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((K, B, Hp), fwd, memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, B, Hp), rev, memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, B, Hp), fwd, memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, B, Hp), rev, memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, B, Hp), jnp.float32),
-            pltpu.VMEM((2, B, Hp), jnp.float32),
-        ],
-        out_shape=[jax.ShapeDtypeStruct((Tp, B, Hp), jnp.bfloat16)] * 4,
-        interpret=interpret,
-    )(xp0, xp1, U)
-    return outs
-
-
-def _tm_bwd_kernel(
-    xp0_ref, hs0_ref, hs0p_ref, cs0_ref, cs0p_ref, dhs0_ref,
-    xp1_ref, hs1_ref, hs1n_ref, cs1_ref, cs1n_ref, dhs1_ref,
-    u_ref, dz0_ref, dz1_ref, dh_scr, dc_scr,
-):
-    """Adjoint walk: d0 in reverse original time (prev state = previous
-    row / previous chunk's last row), d1 in FORWARD original time (its
-    scan ran backwards, so its pre-state lives at tau+1 / the NEXT
-    chunk's first row)."""
-    rc = pl.program_id(0)
-    C = pl.num_programs(0)
-    K = dz0_ref.shape[0]
-    Hp = u_ref.shape[1]
-    Tp = C * K
-
-    @pl.when(rc == 0)
-    def _init():
-        dh_scr[...] = jnp.zeros_like(dh_scr)
-        dc_scr[...] = jnp.zeros_like(dc_scr)
-
-    def hs_grad(zx):
-        return jnp.where((zx > -2.5) & (zx < 2.5), 0.2, 0.0)
-
-    def direction_step(xp_ref_d, u_d, h_prev, c_prev, c_t, dhs_row,
-                       dh_c, dc_c, row):
-        z = xp_ref_d[row].astype(jnp.float32) + jnp.dot(
-            h_prev.astype(jnp.bfloat16), u_d,
-            preferred_element_type=jnp.float32,
-        )
-        z_i = z[:, 0 * Hp : 1 * Hp]
-        z_f = z[:, 1 * Hp : 2 * Hp]
-        z_g = z[:, 2 * Hp : 3 * Hp]
-        z_o = z[:, 3 * Hp : 4 * Hp]
-        i_g = jnp.clip(0.2 * z_i + 0.5, 0.0, 1.0)
-        f_g = jnp.clip(0.2 * z_f + 0.5, 0.0, 1.0)
-        g_g = jnp.tanh(z_g)
-        o_g = jnp.clip(0.2 * z_o + 0.5, 0.0, 1.0)
-        tanh_c = jnp.tanh(c_t)
-        dh = dhs_row.astype(jnp.float32) + dh_c
-        do = dh * tanh_c
-        dc = dc_c + dh * o_g * (1.0 - tanh_c * tanh_c)
-        dz = jnp.concatenate(
-            [
-                (dc * g_g) * hs_grad(z_i),
-                (dc * c_prev) * hs_grad(z_f),
-                (dc * i_g) * (1.0 - g_g * g_g),
-                do * hs_grad(z_o),
-            ],
-            axis=1,
-        )
-        dh_prev = jax.lax.dot_general(
-            dz.astype(jnp.bfloat16), u_d,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        return dz, dh_prev, dc * f_g
-
-    def body(i, carry):
-        dh_c, dc_c = carry  # (2, B, Hp)
-
-        # --- d0: reverse original time ---
-        k0 = K - 1 - i
-        t0 = (C - 1 - rc) * K + k0
-        km1 = jnp.maximum(k0 - 1, 0)
-        h_prev0 = jnp.where(k0 == 0, hs0p_ref[K - 1], hs0_ref[km1])
-        c_prev0 = jnp.where(k0 == 0, cs0p_ref[K - 1], cs0_ref[km1])
-        h_prev0 = jnp.where(t0 == 0, 0.0, h_prev0.astype(jnp.float32))
-        c_prev0 = jnp.where(t0 == 0, 0.0, c_prev0.astype(jnp.float32))
-        dz0, dh0, dc0 = direction_step(
-            xp0_ref, u_ref[0], h_prev0, c_prev0,
-            cs0_ref[k0].astype(jnp.float32), dhs0_ref[k0],
-            dh_c[0], dc_c[0], k0,
-        )
-        dz0_ref[k0] = dz0.astype(dz0_ref.dtype)
-
-        # --- d1: forward original time (adjoint of its reverse scan) ---
-        k1 = i
-        t1 = rc * K + k1
-        kp1 = jnp.minimum(k1 + 1, K - 1)
-        h_prev1 = jnp.where(k1 == K - 1, hs1n_ref[0], hs1_ref[kp1])
-        c_prev1 = jnp.where(k1 == K - 1, cs1n_ref[0], cs1_ref[kp1])
-        h_prev1 = jnp.where(t1 == Tp - 1, 0.0,
-                            h_prev1.astype(jnp.float32))
-        c_prev1 = jnp.where(t1 == Tp - 1, 0.0,
-                            c_prev1.astype(jnp.float32))
-        dz1, dh1, dc1 = direction_step(
-            xp1_ref, u_ref[1], h_prev1, c_prev1,
-            cs1_ref[k1].astype(jnp.float32), dhs1_ref[k1],
-            dh_c[1], dc_c[1], k1,
-        )
-        dz1_ref[k1] = dz1.astype(dz1_ref.dtype)
-
-        return jnp.stack([dh0, dh1]), jnp.stack([dc0, dc1])
-
-    dh, dc = jax.lax.fori_loop(0, K, body, (dh_scr[...], dc_scr[...]))
-    dh_scr[...] = dh
-    dc_scr[...] = dc
-
-
-def _tm_bwd_call(xp0, xp1, hs0, hs1, cs0, cs1, dhs0, dhs1, U, interpret):
-    Tp, B, H4 = xp0.shape
-    Hp = H4 // 4
-    K = LSTM_TM_CHUNK_BWD
-    C = Tp // K
-
-    rev = lambda c: (C - 1 - c, 0, 0)
-    rev_prev = lambda c: (jnp.maximum(C - 1 - c - 1, 0), 0, 0)
-    fwd = lambda c: (c, 0, 0)
-    fwd_next = lambda c: (jnp.minimum(c + 1, C - 1), 0, 0)
-    const = lambda c: (0, 0, 0)
-
-    def spec(shape, m):
-        return pl.BlockSpec(shape, m, memory_space=pltpu.VMEM)
-
-    dz0, dz1 = pl.pallas_call(
-        _tm_bwd_kernel,
-        grid=(C,),
-        in_specs=[
-            spec((K, B, H4), rev),      # xp0
-            spec((K, B, Hp), rev),      # hs0
-            spec((K, B, Hp), rev_prev), # hs0 prev chunk
-            spec((K, B, Hp), rev),      # cs0
-            spec((K, B, Hp), rev_prev), # cs0 prev chunk
-            spec((K, B, Hp), rev),      # dhs0
-            spec((K, B, H4), fwd),      # xp1
-            spec((K, B, Hp), fwd),      # hs1
-            spec((K, B, Hp), fwd_next), # hs1 next chunk
-            spec((K, B, Hp), fwd),      # cs1
-            spec((K, B, Hp), fwd_next), # cs1 next chunk
-            spec((K, B, Hp), fwd),      # dhs1
-            pl.BlockSpec((2, Hp, H4), const, memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            spec((K, B, H4), rev),
-            spec((K, B, H4), fwd),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, B, Hp), jnp.float32),
-            pltpu.VMEM((2, B, Hp), jnp.float32),
-        ],
-        out_shape=[jax.ShapeDtypeStruct((Tp, B, H4), jnp.bfloat16)] * 2,
-        interpret=interpret,
-    )(xp0, hs0, hs0, cs0, cs0, dhs0, xp1, hs1, hs1, cs1, cs1, dhs1, U)
-    return dz0, dz1
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
-def _tm_core(xp0, xp1, U, interpret):
-    hs0, hs1, _, _ = _tm_fwd_call(xp0, xp1, U, interpret)
-    return hs0, hs1
-
-
-def _tm_core_fwd(xp0, xp1, U, interpret):
-    hs0, hs1, cs0, cs1 = _tm_fwd_call(xp0, xp1, U, interpret)
-    return (hs0, hs1), (xp0, xp1, U, hs0, hs1, cs0, cs1)
-
-
-def _tm_core_bwd(interpret, res, grads):
-    xp0, xp1, U, hs0, hs1, cs0, cs1 = res
-    dhs0, dhs1 = (g.astype(jnp.bfloat16) for g in grads)
-    dz0, dz1 = _tm_bwd_call(
-        xp0, xp1, hs0, hs1, cs0, cs1, dhs0, dhs1, U, interpret
-    )
-    # h_prev streams: d0 looks back (zeros at t=0); d1 looks FORWARD
-    # (its scan pre-state at original tau is hs1[tau+1]; zeros at Tp-1).
-    hp0 = jnp.concatenate([jnp.zeros_like(hs0[:1]), hs0[:-1]], axis=0)
-    hp1 = jnp.concatenate([hs1[1:], jnp.zeros_like(hs1[:1])], axis=0)
-    dU0 = jnp.einsum("tbh,tbk->hk", hp0.astype(jnp.bfloat16), dz0,
-                     preferred_element_type=jnp.float32)
-    dU1 = jnp.einsum("tbh,tbk->hk", hp1.astype(jnp.bfloat16), dz1,
-                     preferred_element_type=jnp.float32)
-    dU = jnp.stack([dU0, dU1]).astype(U.dtype)
-    return dz0.astype(xp0.dtype), dz1.astype(xp1.dtype), dU
-
-
-_tm_core.defvjp(_tm_core_fwd, _tm_core_bwd)
-
-
-def pallas_bilstm_tm(
-    xp0: jax.Array, xp1: jax.Array, U: jax.Array,
-    *, interpret: bool | None = None,
-):
-    """Time-major fused BLSTM scan.
-
-    xp0/xp1: (T, B, 4, H) per-direction gate projections in ORIGINAL
-    time order (direction 1's reversal happens inside the kernel).
-    U: (2, H, 4, H). Returns (hs0, hs1), each (T, B, H) float32, both in
-    original time order (hs1[t] = backward-direction state having
-    consumed steps T-1..t). Differentiable in all three arguments.
-    """
-    if interpret is None:
-        interpret = _interpret_default()
-    T, B, _, H = xp0.shape
-    Hp = _round_up(H, LANE)
-    pad = Hp - H
-    step_mult = max(LSTM_TM_CHUNK_FWD, LSTM_TM_CHUNK_BWD)
-    Tp = _round_up(T, step_mult)
-
-    def prep(xp):
-        if pad:
-            xp = jnp.pad(xp, ((0, 0), (0, 0), (0, 0), (0, pad)))
-        xp = xp.reshape(T, B, 4 * Hp)
-        if Tp != T:
-            xp = jnp.pad(xp, ((0, Tp - T), (0, 0), (0, 0)))
-        return xp.astype(jnp.bfloat16)
-
-    Upad = U
-    if pad:
-        Upad = jnp.pad(U, ((0, 0), (0, pad), (0, 0), (0, pad)))
-    Uf = Upad.reshape(2, Hp, 4 * Hp).astype(jnp.bfloat16)
-
-    hs0, hs1 = _tm_core(prep(xp0), prep(xp1), Uf, interpret)
-    hs0 = hs0[:T, :, :H].astype(jnp.float32)
-    hs1 = hs1[:T, :, :H].astype(jnp.float32)
-    return hs0, hs1
-
-
-# ---------------------------------------------------------------------------
-# Single-direction time-major kernels — the compute core of the
-# direction-sharded tensor-parallel path (docs/PARALLELISM.md): with a
-# model axis of size 2, each device runs ONE direction of the BLSTM, so
-# the per-step serial dot chain halves per chip with ZERO per-step
-# collectives (the only communication is one h-stream all_gather per
-# layer). The scan order is a STATIC parameter: the caller lax.conds
-# between the two compiled variants because its direction is a runtime
-# axis_index. Bodies are the per-direction halves of _tm_fwd_kernel /
-# _tm_bwd_kernel; chunk sizes and numerics are identical.
-# ---------------------------------------------------------------------------
-
-
-def _tm1_fwd_kernel(xp_ref, u_ref, hs_ref, cs_ref, h_scr, c_scr,
-                    *, reverse: bool):
-    """One chunk of a single-direction scan. ``reverse=True`` scans
-    original time T-1 -> 0 (blocks stream via a reversed index map, rows
-    consumed in reverse); outputs always land at original positions."""
-    c = pl.program_id(0)
-    K = xp_ref.shape[0]
-    Hp = u_ref.shape[0]
-
-    @pl.when(c == 0)
-    def _init():
-        h_scr[...] = jnp.zeros_like(h_scr)
-        c_scr[...] = jnp.zeros_like(c_scr)
-
-    def body(k, carry):
-        h, cc = carry  # (B, Hp) f32
-        row = K - 1 - k if reverse else k
-        z = xp_ref[row].astype(jnp.float32) + jnp.dot(
-            h.astype(jnp.bfloat16), u_ref[...],
-            preferred_element_type=jnp.float32,
-        )
-        i = jnp.clip(0.2 * z[:, 0 * Hp : 1 * Hp] + 0.5, 0.0, 1.0)
-        f = jnp.clip(0.2 * z[:, 1 * Hp : 2 * Hp] + 0.5, 0.0, 1.0)
-        g = jnp.tanh(z[:, 2 * Hp : 3 * Hp])
-        o = jnp.clip(0.2 * z[:, 3 * Hp : 4 * Hp] + 0.5, 0.0, 1.0)
-        c_new = f * cc + i * g
-        h_new = o * jnp.tanh(c_new)
-        hs_ref[row] = h_new.astype(hs_ref.dtype)
-        cs_ref[row] = c_new.astype(cs_ref.dtype)
-        return h_new, c_new
-
-    h, cc = jax.lax.fori_loop(0, K, body, (h_scr[...], c_scr[...]))
-    h_scr[...] = h
-    c_scr[...] = cc
-
-
-def _tm1_fwd_call(xp, U1, reverse, interpret):
-    """xp (Tp, B, 4Hp) bf16, U1 (Hp, 4Hp) -> hs, cs (Tp, B, Hp) bf16."""
-    Tp, B, H4 = xp.shape
-    Hp = H4 // 4
-    K = LSTM_TM_CHUNK_FWD
-    C = Tp // K
-    m = (lambda c: (C - 1 - c, 0, 0)) if reverse else (lambda c: (c, 0, 0))
-
-    return pl.pallas_call(
-        functools.partial(_tm1_fwd_kernel, reverse=reverse),
-        grid=(C,),
-        in_specs=[
-            pl.BlockSpec((K, B, H4), m, memory_space=pltpu.VMEM),
-            pl.BlockSpec((Hp, H4), lambda c: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((K, B, Hp), m, memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, B, Hp), m, memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((B, Hp), jnp.float32),
-            pltpu.VMEM((B, Hp), jnp.float32),
-        ],
-        out_shape=[jax.ShapeDtypeStruct((Tp, B, Hp), jnp.bfloat16)] * 2,
-        interpret=interpret,
-    )(xp, U1)
-
-
-def _tm1_bwd_kernel(xp_ref, hs_ref, hsx_ref, cs_ref, csx_ref, dhs_ref,
-                    u_ref, dz_ref, dh_scr, dc_scr, *, reverse: bool):
-    """Adjoint chunk. For a forward scan the adjoint walks reverse
-    original time (pre-state at the previous row / previous chunk's last
-    row); for a reverse scan it walks forward (pre-state at row+1 / the
-    next chunk's first row). ``hsx_ref``/``csx_ref`` are the neighbour
-    chunk streams."""
-    rc = pl.program_id(0)
-    C = pl.num_programs(0)
-    K = dz_ref.shape[0]
-    Hp = u_ref.shape[0]
-    Tp = C * K
-
-    @pl.when(rc == 0)
-    def _init():
-        dh_scr[...] = jnp.zeros_like(dh_scr)
-        dc_scr[...] = jnp.zeros_like(dc_scr)
-
-    def hs_grad(zx):
-        return jnp.where((zx > -2.5) & (zx < 2.5), 0.2, 0.0)
-
-    def body(i, carry):
-        dh_c, dc_c = carry  # (B, Hp) f32
-        if reverse:
-            k = i
-            t = rc * K + k
-            kn = jnp.minimum(k + 1, K - 1)
-            h_prev = jnp.where(k == K - 1, hsx_ref[0], hs_ref[kn])
-            c_prev = jnp.where(k == K - 1, csx_ref[0], cs_ref[kn])
-            boundary = t == Tp - 1
-        else:
-            k = K - 1 - i
-            t = (C - 1 - rc) * K + k
-            kn = jnp.maximum(k - 1, 0)
-            h_prev = jnp.where(k == 0, hsx_ref[K - 1], hs_ref[kn])
-            c_prev = jnp.where(k == 0, csx_ref[K - 1], cs_ref[kn])
-            boundary = t == 0
-        h_prev = jnp.where(boundary, 0.0, h_prev.astype(jnp.float32))
-        c_prev = jnp.where(boundary, 0.0, c_prev.astype(jnp.float32))
-
-        z = xp_ref[k].astype(jnp.float32) + jnp.dot(
-            h_prev.astype(jnp.bfloat16), u_ref[...],
-            preferred_element_type=jnp.float32,
-        )
-        z_i = z[:, 0 * Hp : 1 * Hp]
-        z_f = z[:, 1 * Hp : 2 * Hp]
-        z_g = z[:, 2 * Hp : 3 * Hp]
-        z_o = z[:, 3 * Hp : 4 * Hp]
-        i_g = jnp.clip(0.2 * z_i + 0.5, 0.0, 1.0)
-        f_g = jnp.clip(0.2 * z_f + 0.5, 0.0, 1.0)
-        g_g = jnp.tanh(z_g)
-        o_g = jnp.clip(0.2 * z_o + 0.5, 0.0, 1.0)
-        c_t = cs_ref[k].astype(jnp.float32)
-        tanh_c = jnp.tanh(c_t)
-        dh = dhs_ref[k].astype(jnp.float32) + dh_c
-        do = dh * tanh_c
-        dc = dc_c + dh * o_g * (1.0 - tanh_c * tanh_c)
-        dz = jnp.concatenate(
-            [
-                (dc * g_g) * hs_grad(z_i),
-                (dc * c_prev) * hs_grad(z_f),
-                (dc * i_g) * (1.0 - g_g * g_g),
-                do * hs_grad(z_o),
-            ],
-            axis=1,
-        )
-        dz_ref[k] = dz.astype(dz_ref.dtype)
-        dh_prev = jax.lax.dot_general(
-            dz.astype(jnp.bfloat16), u_ref[...],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        return dh_prev, dc * f_g
-
-    dh, dc = jax.lax.fori_loop(0, K, body, (dh_scr[...], dc_scr[...]))
-    dh_scr[...] = dh
-    dc_scr[...] = dc
-
-
-def _tm1_bwd_call(xp, hs, cs, dhs, U1, reverse, interpret):
-    Tp, B, H4 = xp.shape
-    Hp = H4 // 4
-    K = LSTM_TM_CHUNK_BWD
-    C = Tp // K
-
-    if reverse:
-        m = lambda c: (c, 0, 0)
-        mx = lambda c: (jnp.minimum(c + 1, C - 1), 0, 0)
-    else:
-        m = lambda c: (C - 1 - c, 0, 0)
-        mx = lambda c: (jnp.maximum(C - 1 - c - 1, 0), 0, 0)
-
-    def spec(shape, idx):
-        return pl.BlockSpec(shape, idx, memory_space=pltpu.VMEM)
-
-    (dz,) = pl.pallas_call(
-        functools.partial(_tm1_bwd_kernel, reverse=reverse),
-        grid=(C,),
-        in_specs=[
-            spec((K, B, H4), m),   # xp
-            spec((K, B, Hp), m),   # hs
-            spec((K, B, Hp), mx),  # hs neighbour chunk
-            spec((K, B, Hp), m),   # cs
-            spec((K, B, Hp), mx),  # cs neighbour chunk
-            spec((K, B, Hp), m),   # dhs
-            pl.BlockSpec((Hp, H4), lambda c: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[spec((K, B, H4), m)],
-        scratch_shapes=[
-            pltpu.VMEM((B, Hp), jnp.float32),
-            pltpu.VMEM((B, Hp), jnp.float32),
-        ],
-        out_shape=[jax.ShapeDtypeStruct((Tp, B, H4), jnp.bfloat16)],
-        interpret=interpret,
-    )(xp, hs, hs, cs, cs, dhs, U1)
-    return dz
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
-def _tm1_core(xp, U1, reverse, interpret):
-    hs, _ = _tm1_fwd_call(xp, U1, reverse, interpret)
-    return hs
-
-
-def _tm1_core_fwd(xp, U1, reverse, interpret):
-    hs, cs = _tm1_fwd_call(xp, U1, reverse, interpret)
-    return hs, (xp, U1, hs, cs)
-
-
-def _tm1_core_bwd(reverse, interpret, res, dhs):
-    xp, U1, hs, cs = res
-    dz = _tm1_bwd_call(
-        xp, hs, cs, dhs.astype(jnp.bfloat16), U1, reverse, interpret
-    )
-    # Pre-state stream for dU: a forward scan's state at t comes from
-    # t-1 (zeros at t=0); a reverse scan's from t+1 (zeros at Tp-1).
-    if reverse:
-        hp = jnp.concatenate([hs[1:], jnp.zeros_like(hs[:1])], axis=0)
-    else:
-        hp = jnp.concatenate([jnp.zeros_like(hs[:1]), hs[:-1]], axis=0)
-    dU = jnp.einsum("tbh,tbk->hk", hp.astype(jnp.bfloat16), dz,
-                    preferred_element_type=jnp.float32)
-    return dz.astype(xp.dtype), dU.astype(U1.dtype)
-
-
-_tm1_core.defvjp(_tm1_core_fwd, _tm1_core_bwd)
-
-
-def pallas_lstm_tm(
-    xp: jax.Array, U1: jax.Array, *, reverse: bool,
-    interpret: bool | None = None,
-) -> jax.Array:
-    """Single-direction time-major LSTM scan.
-
-    xp: (T, B, 4, H) gate projections in ORIGINAL time order;
-    U1: (H, 4, H). ``reverse=True`` scans T-1 -> 0 (the backward
-    direction of a BLSTM; the reversal happens inside the kernel via
-    index maps — no data flip). Returns the h stream (T, B, H) float32
-    in original time order. Differentiable in both arguments.
-
-    ``reverse`` is static: the direction-sharded TP path lax.conds
-    between the two variants since its direction is a runtime
-    axis_index (mgr_tpu.ops.lstm.bilstm_layer_tm_dirsharded).
-    """
-    if interpret is None:
-        interpret = _interpret_default()
-    T, B, _, H = xp.shape
-    Hp = _round_up(H, LANE)
-    pad = Hp - H
-    step_mult = max(LSTM_TM_CHUNK_FWD, LSTM_TM_CHUNK_BWD)
-    Tp = _round_up(T, step_mult)
-
-    if pad:
-        xp = jnp.pad(xp, ((0, 0), (0, 0), (0, 0), (0, pad)))
-        U1 = jnp.pad(U1, ((0, pad), (0, 0), (0, pad)))
-    xp = xp.reshape(T, B, 4 * Hp)
-    if Tp != T:
-        # Padded steps sit at the END in storage order. A reverse scan
-        # consumes them FIRST; their zero projections only decay the
-        # zero initial state through the gate math (h stays exactly 0
-        # through tanh/hard-sigmoid with zero input and zero carry is
-        # NOT true — gates at z=0 give i=f=o=0.5, g=0, so c stays 0 and
-        # h stays 0; state entering the real steps is unchanged).
-        xp = jnp.pad(xp, ((0, Tp - T), (0, 0), (0, 0)))
-    Uf = U1.reshape(Hp, 4 * Hp).astype(jnp.bfloat16)
-
-    hs = _tm1_core(xp.astype(jnp.bfloat16), Uf, reverse, interpret)
-    return hs[:T, :, :H].astype(jnp.float32)
+        [jnp.full((B, 1), _CTC_NEG),  # state 0 has no emit two back
+         jnp.where(same, _CTC_NEG, 0.0),
+         jnp.zeros((B, Np - N), jnp.float32)],
+        axis=1,
+    ).astype(jnp.float32)
+
+    return ctc_alpha_loss(lp_full, skip_pen, input_lengths, label_lengths,
+                          N, interpret)

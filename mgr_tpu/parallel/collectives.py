@@ -3,7 +3,7 @@
 Under ``jit`` + sharding annotations, XLA inserts collectives
 automatically; these wrappers exist for explicit ``shard_map`` regions
 (e.g. custom data-loading reductions, metrics aggregation) and to give
-the comms layer a single audited surface — the TPU-native counterpart of
+the comms layer a single audited surface — the counterpart of
 the NCCL/MPI backend the reference never had (SURVEY.md §2.3).
 """
 

@@ -1,13 +1,13 @@
 """Mesh construction helpers.
 
 Axis conventions (used by every sharding annotation in the framework):
-  data  — batch (data-parallel); gradients all-reduce over ICI.
+  data  — batch (data-parallel); gradients all-reduce across devices.
   model — hidden-unit blocks of the LSTM gate weights (tensor-parallel).
 
 Pipeline parallelism is intentionally out of scope: the reference's nets
 are 5 layers deep (SURVEY.md §2.3). Sequence parallelism for the
 recurrence is also deliberately absent — an LSTM's time axis is serial;
-the honest TPU answer is batch parallelism + remat (SURVEY.md §5.7).
+the honest answer is batch parallelism + remat (SURVEY.md §5.7).
 """
 
 from __future__ import annotations

@@ -1,12 +1,11 @@
 """Multi-host runtime: process initialization and preemption-safe habits.
 
 The reference is a single `python script.py` process with no failure
-handling beyond a resume prompt (SURVEY.md §5.3). The TPU-native story:
+handling beyond a resume prompt (SURVEY.md §5.3). Here:
 
   * `initialize()` wires `jax.distributed.initialize` from the standard
-    env (JAX_COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID, or the
-    TPU metadata autodetection when args are omitted) so the same train
-    script runs on one host or a v5e-256 pod slice unchanged.
+    env (JAX_COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) so the
+    same train script runs on one host or many unchanged.
   * checkpoints are written atomically by the primary only
     (mgr_tpu.core.checkpoint uses tmp+rename), and `fit(resume=True)`
     restarts from the latest slot after a preemption.
@@ -30,7 +29,7 @@ def _distributed_client_up() -> bool:
     """Whether jax.distributed is already initialized — WITHOUT touching
     the backend. (`jax.process_count()` would initialize XLA, after
     which `jax.distributed.initialize` permanently fails — the same
-    probe-before-configure trap as the dryrun's platform pinning.)"""
+    probe-before-configure trap as configuring a platform late.)"""
     try:
         from jax._src import distributed as _dist
 

@@ -4,7 +4,7 @@ Encodes the reference's end-to-end recipe (README.md:32-53, call stack
 SURVEY.md §3.3): train both uni-modal encoders, then build the fusion
 model with the pretrained encoder weights grafted in and frozen
 (multimodal.py:58-148). The "100 hours on a GTX 1060" headline covers
-this whole schedule; on TPU each stage is a fit() over cached arrays.
+this whole schedule; here each stage is a fit() over cached arrays.
 """
 
 from __future__ import annotations

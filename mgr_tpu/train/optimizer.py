@@ -140,7 +140,7 @@ class ReduceLROnPlateau:
     def state_dict(self) -> dict:
         """JSON-serializable mutable state (persisted in the fitmeta
         sidecar so a crash-resume continues at the annealed LR instead
-        of re-catapulting to the base LR — measured round 5: a relay
+        of re-catapulting to the base LR — measured round 5: a process
         kill + resume at scale 1.0 threw a skeletal run from loss 1.09
         back to 9.6 with val divergence)."""
         return {"scale": self.scale, "best": self.best,

@@ -165,24 +165,22 @@ def _make_shardmap_train_step(model: ModelDef, mesh, model_axis=None):
     """shard_map train step: pure DP, or DP x direction-sharded TP.
 
     Each device computes loss/grads over its LOCAL batch shard; inside
-    the shard_map body the fused Pallas BLSTM/CTC kernels stay engaged
+    the shard_map body the CTC kernel stays eligible
     (``ops.dispatch.shard_local`` — under plain GSPMD a pallas_call is a
-    black box whose operands would be all-gathered, so auto mode would
-    silently fall back to the ~2.8x slower XLA scan). Gradients and the
+    black box whose operands would be all-gathered). Gradients and the
     loss pmean over the data axis inside the body; the Adam/maxnorm tail
     runs on replicated params outside.
 
-    Batch is embarrassingly parallel for all three kernels (recurrence,
-    CTC forward, CTC/LSTM backward), so per-device results are
-    bitwise-identical to the single-device kernels on the same rows.
+    Batch is embarrassingly parallel for the recurrence and the CTC
+    forward and backward, so per-device results match the
+    single-device step on the same rows.
 
     With ``model_axis`` (size-2 'model' axis), BLSTM layers additionally
     split their two scan directions across the axis
     (``ops.dispatch.direction_shard`` -> ``bilstm_layer_tm_dirsharded``):
-    params stay replicated, each device runs one direction's fused
-    single-direction kernel, h-streams all_gather per layer. Direction-
-    sharded grads (blstm_*/{W,U,b}) psum over the axis, shared grads
-    pmean.
+    params stay replicated, each device runs one direction's scan,
+    h-streams all_gather per layer. Direction-sharded grads
+    (blstm_*/{W,U,b}) psum over the axis, shared grads pmean.
     """
     from jax.sharding import PartitionSpec as P
 
@@ -231,13 +229,12 @@ def _make_shardmap_train_step(model: ModelDef, mesh, model_axis=None):
 
 
 def _warn_gspmd_fallback(mesh) -> None:
-    """Loud, once-per-mesh-shape notice that the fused Pallas kernels
-    disengage on this mesh (VERDICT r3 item 8): model axes != 2 and
-    non-trivial time axes use the GSPMD path, where XLA partitions the
-    lax.scan recurrence — measured ~2.8x slower than the fused
-    recurrence (docs/KERNELS.md). model=2 gets direction-sharded TP on
-    shard_map; model>2 has no fused mapping (H-sharding would psum every
-    timestep — latency-dominated at T=1900)."""
+    """Loud, once-per-mesh-shape notice that this mesh takes the GSPMD
+    path: model axes != 2 and non-trivial time axes let XLA partition
+    the lax.scan recurrence, and the CTC kernel stays off. model=2 gets
+    direction-sharded TP on shard_map; model>2 has no shard_map mapping
+    (H-sharding would psum every timestep — latency-dominated at
+    T=1900)."""
     import logging
 
     shape = dict(mesh.shape)
@@ -245,9 +242,9 @@ def _warn_gspmd_fallback(mesh) -> None:
         _warned_mesh_shapes.append(shape)
         logging.warning(
             "mesh %s: no shard_map mapping (model axis != 2 or time "
-            "axis > 1) — fused Pallas kernels DISENGAGE; the GSPMD XLA "
-            "scan is ~2.8x slower on the recurrence. Use model=2 "
-            "(direction-sharded TP) or pure DP for the fast path.",
+            "axis > 1) — the GSPMD path runs without the CTC kernel and "
+            "with a partitioned recurrence. Use model=2 "
+            "(direction-sharded TP) or pure DP for the shard_map path.",
             shape,
         )
 
@@ -265,8 +262,8 @@ def make_train_step(
     triggers recompilation.
 
     With a pure-DP ``mesh`` — or DP x a size-2 'model' axis (direction-
-    sharded TP) — the step is built on shard_map so the fused Pallas
-    kernels keep running per device (see
+    sharded TP) — the step is built on shard_map so the CTC kernel can
+    keep running per device (see
     :func:`_make_shardmap_train_step`); other meshes use the GSPMD path,
     where XLA partitions the lax.scan recurrence."""
     if mesh is not None and mesh.devices.size > 1:
@@ -294,12 +291,12 @@ def _gather_batch(data: Dict[str, jax.Array], idx: jax.Array):
 def make_indexed_train_step(model: ModelDef):
     """Device-resident variant of :func:`make_train_step`.
 
-    The WHOLE featurized dataset lives in HBM (uploaded once); the step
+    The WHOLE featurized dataset lives in device memory (uploaded once); the step
     receives only a (B,) row-index vector and gathers its batch
     on-device. Kills the per-step host->device batch transfer — the
-    dominant cost when the host link is slow (remote-attached TPUs) and
-    a free win everywhere else. The audio corpus at reference scale is
-    ~200 MB, far under HBM.
+    dominant cost when the host link is slow, and a free win everywhere
+    else. The audio corpus at reference scale is ~200 MB, far under
+    device memory.
     """
     cfg = model.config
     tx = opt_lib.keras_adam(cfg.optimizer)
@@ -324,7 +321,7 @@ def make_eval_step(model: ModelDef, mesh=None):
     """Returns step(params, batch) -> mean val loss (no dropout/noise).
 
     Pure-DP and DP x direction-TP meshes get the shard_map variant
-    (fused Pallas kernels per device), mirroring
+    (per-device kernels), mirroring
     :func:`make_train_step`."""
     if mesh is not None and mesh.devices.size > 1:
         from mgr_tpu.parallel import sharding as shard_lib
@@ -383,13 +380,13 @@ def make_decode_step(model: ModelDef, *, threshold: float,
     Returns step(params, inputs, input_lengths|None) -> (best, emit):
     (B, T') int32 argmax classes and the boolean emit mask. Fetching
     these (a few hundred KB) instead of the (B, T, C) float posteriors
-    (tens of MB) keeps decoding compute-bound — the full-probs path is
-    host-transfer-bound on remote-attached TPUs.
+    (tens of MB) keeps decoding compute-bound rather than bound by the
+    device-to-host transfer.
 
     Decoding is embarrassingly parallel over the batch, so a pure-DP
     ``mesh`` (or DP x size-2 'model': direction-sharded TP) gets the
     same shard_map treatment as train/eval — each device decodes its
-    local batch shard with the fused Pallas kernels engaged."""
+    local batch shard."""
     from mgr_tpu.ops.decoding import best_path_decode
 
     cfg = model.config

@@ -42,7 +42,7 @@ def test_train_and_decode_skeletal(corpus, tmp_path, capsys, monkeypatch):
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(out["best_val_loss"])
-    assert os.path.exists(os.path.join(workdir, "skeletal_best.msgpack"))
+    assert os.path.exists(os.path.join(workdir, "skeletal_best.npz"))
     assert os.path.exists(os.path.join(workdir, "skeletal_config.json"))
 
     mlf_out = str(tmp_path / "sk.mlf")
@@ -357,7 +357,7 @@ def test_train_early_fusion_cli(corpus, tmp_path, capsys, monkeypatch):
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(out["best_val_loss"])
-    assert os.path.exists(os.path.join(workdir, "early_fusion_best.msgpack"))
+    assert os.path.exists(os.path.join(workdir, "early_fusion_best.npz"))
 
 
 @pytest.mark.slow  # 3-stage curriculum end-to-end, ~55 s
@@ -400,7 +400,7 @@ def test_curriculum_cli(corpus, tmp_path, capsys, monkeypatch):
         assert np.isfinite(stage["best_val_loss"])
     for stamp in ("speech", "skeletal", "late_fusion"):
         assert os.path.exists(
-            os.path.join(workdir, f"{stamp}_best.msgpack")
+            os.path.join(workdir, f"{stamp}_best.npz")
         )
 
 

@@ -1,5 +1,6 @@
 """Data pipeline: formats, split parity, batchers, all five builders."""
 
+import os
 import random
 
 import numpy as np
@@ -269,3 +270,88 @@ def test_synthetic_reuse_skips_regeneration(tmp_path):
     c2, _, sl2 = synthetic.make_skeletal_dataset(
         skc, n_files=3, frames_per_label=6, seed=1, reuse=True)
     assert sl1 == sl2 and _os.path.getmtime(c2) == ms
+
+
+def _write(path, text):
+    with open(path, "w") as f:
+        f.write(text)
+    return str(path)
+
+
+@pytest.mark.parametrize("kind", ["labels", "mono_audio", "skeletal",
+                                  "mixer", "kinect"])
+def test_csv_readers_without_pandas(tmp_path, kind):
+    """The csv/numpy readers keep the reference formats' semantics:
+    empty sequences, headerless monolithic audio, skeletal columns by
+    name in any order with float file ids, first-appearance file order,
+    row moves between splits, and quoted joint cells."""
+    from mgr_tpu.data import formats, mixer
+    from mgr_tpu.data.skeletal_pipeline import parse_kinect_csv
+
+    if kind == "labels":
+        p = _write(tmp_path / "l.csv", "Id,Sequence\n3,1 4 2\n7,\n\n5,9\n")
+        assert formats.load_label_csv(p) == {3: [1, 4, 2], 7: [], 5: [9]}
+    elif kind == "mono_audio":
+        rows = [[float(i + j) for j in range(39)] + [fid, lab]
+                for i, (fid, lab) in enumerate([(8, 1), (8, 2), (2, 5)])]
+        p = _write(tmp_path / "a.csv", "\n".join(
+            ",".join(f"{v:g}" for v in r) for r in rows) + "\n")
+        out = formats.load_monolithic_audio_csv(p, normalize=False)
+        assert list(out) == [8, 2]
+        np.testing.assert_array_equal(out[8][1], [1, 2])
+        assert out[8][0].shape == (2, 39) and out[8][0].dtype == np.float32
+        np.testing.assert_array_equal(out[2][0][0], np.arange(2, 41))
+    elif kind == "skeletal":
+        cols = ["file_number"] + list(reversed(formats.SKELETAL_FEATURES))
+        body = [[4.0] + list(range(20)), [1.0] + list(range(20, 40)),
+                [4.0] + list(range(40, 60))]
+        p = _write(tmp_path / "s.csv", ",".join(cols) + "\n" + "\n".join(
+            ",".join(str(v) for v in r) for r in body) + "\n")
+        out = formats.load_skeletal_csv(p, normalize=False)
+        assert list(out) == [4, 1]
+        # Columns come back in SKELETAL_FEATURES order.
+        np.testing.assert_array_equal(out[1][0], np.arange(39, 19, -1))
+        assert out[4].shape == (2, 20)
+    elif kind == "mixer":
+        tr = _write(tmp_path / "tr.csv", "Id,Sequence\n1,2 3\n")
+        va = _write(tmp_path / "va.csv", "Sequence,Id\n4,2\n5 6,3.0\n,4\n")
+        mixer.mix_label_csvs(tr, va, [3, 4], str(tmp_path / "o_tr.csv"),
+                             str(tmp_path / "o_va.csv"))
+        assert formats.load_label_csv(tmp_path / "o_tr.csv") == {
+            1: [2, 3], 3: [5, 6], 4: []}
+        assert formats.load_label_csv(tmp_path / "o_va.csv") == {2: [4]}
+    else:
+        from mgr_tpu.data.skeletal_pipeline import KINECT_COLUMNS
+
+        cols = list(KINECT_COLUMNS)
+        p = _write(tmp_path / "k.csv", ",".join(cols) + "\n" + "\n".join(
+            ",".join(f'"[{10 * r + i} {700 if i == 0 else i}]"'
+                     for i in range(len(cols))) for r in range(2)) + "\n")
+        joints = parse_kinect_csv(p)
+        first = joints[KINECT_COLUMNS[cols[0]]]
+        # y >= 480 falls back to the frame centre's 240.
+        np.testing.assert_array_equal(first, [[0, 240], [10, 240]])
+
+
+def test_main_path_imports_without_optional_packages():
+    """The trainer, CLI and benchmark import with flax, orbax and pandas
+    blocked: none of them is installed on the GPU machine."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('flax', 'orbax', 'pandas'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import mgr_tpu.train.loop, mgr_tpu.cli.main, mgr_tpu.data.mixer\n"
+        "import mgr_tpu.data.skeletal_pipeline, bench, chip_smoke\n"
+        "print('ok')\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=repo, env=env, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]

@@ -68,7 +68,7 @@ def test_fit_trains_and_checkpoints(speech_data, tmp_path):
     import os as _os
     import time as _time
 
-    latest = str(tmp_path / "speech_latest.msgpack")
+    latest = str(tmp_path / "speech_latest.npz")
     m0 = _os.path.getmtime(latest)
     _time.sleep(0.05)
     res3 = fit(model, ds, workdir=str(tmp_path), resume=True, epochs=4,
@@ -237,18 +237,80 @@ def test_fit_with_mesh_on_virtual_devices(speech_data, tmp_path):
     assert res.history[-1]["train_loss"] < res.history[0]["train_loss"] * 1.5
 
 
-def test_orbax_checkpoint_roundtrip(tmp_path):
+def _roundtrip_tree(kind):
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    params = {"enc": {"W": jnp.arange(6.0).reshape(2, 3)},
+              "head": {"b": jnp.linspace(-1, 1, 4)}}
+    if kind == "bf16":
+        return {"w": jnp.linspace(-3, 3, 7).astype(jnp.bfloat16),
+                "x": jnp.ones((2, 2), jnp.float32)}
+    if kind == "prng_key":
+        return {"key": jax.random.key(7),
+                "keys": jax.random.split(jax.random.key(3), 3),
+                "raw": jax.random.PRNGKey(5)}
+    if kind == "optax_state":
+        tx = optax.chain(optax.clip(0.5), optax.adam(1e-3))
+        opt = tx.init(params)
+        grads = jax.tree.map(jnp.ones_like, params)
+        _, opt = tx.update(grads, opt, params)
+        return {"params": params, "opt_state": opt, "step": jnp.int32(3)}
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "prng_key", "optax_state"])
+def test_npz_checkpoint_roundtrip(tmp_path, kind):
+    """Every leaf comes back bit-exact with its dtype: bfloat16 through
+    its raw bits, typed PRNG keys through their key data, and optax
+    states (NamedTuples, EmptyState) through their tree paths."""
+    import jax
+
+    tree = _roundtrip_tree(kind)
+    path = ckpt_lib.save_checkpoint(str(tmp_path), "t", tree)
+    assert path.endswith("t_latest.npz")
+    template = jax.tree.map(lambda x: x, tree)
+    restored = ckpt_lib.load_checkpoint(str(tmp_path), "t", template)
+    assert (jax.tree.structure(restored) == jax.tree.structure(tree))
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(restored)):
+        assert a.dtype == b.dtype
+        if jax.dtypes.issubdtype(a.dtype, jax.dtypes.prng_key):
+            a, b = jax.random.key_data(a), jax.random.key_data(b)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_npz_checkpoint_rejects_mismatch(tmp_path):
+    import jax.numpy as jnp
+
+    ckpt_lib.save_checkpoint(str(tmp_path), "t", {"w": jnp.ones(3)})
+    with pytest.raises(ValueError):
+        ckpt_lib.load_checkpoint(str(tmp_path), "t", {"w": jnp.ones(4)})
+    with pytest.raises(KeyError):
+        ckpt_lib.load_checkpoint(str(tmp_path), "t", {"v": jnp.ones(3)})
+
+
+def test_npz_checkpoint_flexible_reload(tmp_path):
+    """A resume whose optimizer chain changed restores params + step
+    and rewinds the schedule count (load_checkpoint_flexible)."""
     import jax
 
     cfg = _speech_cfg()
     model = build_model(cfg)
     state = create_train_state(model, prng.root_key(0))
-    ckpt_lib.save_checkpoint_orbax(str(tmp_path), "speech", state)
-    template = create_train_state(model, prng.root_key(1))
-    restored = ckpt_lib.load_checkpoint_orbax(
-        str(tmp_path), "speech", template
-    )
-    for a, b in zip(jax.tree.leaves(state), jax.tree.leaves(restored)):
+    state = state._replace(step=jax.numpy.asarray(17, jax.numpy.int32))
+    ckpt_lib.save_checkpoint(str(tmp_path), "speech", state)
+    other = build_model(_speech_cfg(
+        optimizer=cfglib.OptimizerConfig(learning_rate=3e-3, decay=1e-5,
+                                         skip_nonfinite=3)))
+    template = create_train_state(other, prng.root_key(1))
+    with pytest.raises((ValueError, KeyError)):
+        ckpt_lib.load_checkpoint(str(tmp_path), "speech", template)
+    restored = ckpt_lib.load_checkpoint_flexible(str(tmp_path), "speech",
+                                                 template)
+    assert int(restored.step) == 17
+    for a, b in zip(jax.tree.leaves(state.params),
+                    jax.tree.leaves(restored.params)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
@@ -257,7 +319,7 @@ def test_checkpoint_every_preserves_true_best(speech_data, tmp_path):
     run with the TRUE best-epoch params on disk — the best state is
     retained in memory and flushed on the cadence / at the end. (Added
     because per-epoch ~100 MB serialization dwarfed sub-second epochs
-    on real-TPU runs.)"""
+    on accelerator runs.)"""
     import jax
 
     data_dir, label_file = speech_data
@@ -423,7 +485,7 @@ def test_plateau_state_survives_crash_resume(speech_data, tmp_path):
     """The annealed LR scale must survive a PROCESS restart, not just a
     chunk boundary: fit persists controller state in the fitmeta
     sidecar and resume restores it into a pristine controller.
-    (Measured round 5: a relay-wedge kill + resume at scale 1.0 threw a
+    (Measured round 5: a process kill + resume at scale 1.0 threw a
     skeletal stage from loss 1.09 back to 9.6 with val divergence.)"""
     from mgr_tpu.train.optimizer import plateau_from_config
 
@@ -587,8 +649,8 @@ def test_flexible_restore_rewinds_lr_schedule(speech_data, tmp_path):
 
 
 def test_gspmd_fallback_warns_on_unfused_mesh(caplog):
-    """model>2 meshes silently lost the fused-kernel path; now they
-    warn with the measured cost (VERDICT r3 item 8)."""
+    """model>2 meshes leave the shard_map path (no CTC kernel, a
+    partitioned recurrence) and must say so."""
     import logging
 
     import jax as _jax
@@ -602,7 +664,7 @@ def test_gspmd_fallback_warns_on_unfused_mesh(caplog):
     mesh = make_mesh(cfg.mesh)
     with caplog.at_level(logging.WARNING):
         make_train_step(build_model(cfg), mesh=mesh)
-    assert any("fused Pallas kernels DISENGAGE" in r.message
+    assert any("no shard_map mapping" in r.message
                for r in caplog.records)
 
 

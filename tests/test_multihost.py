@@ -2,7 +2,7 @@
 distributed cluster over localhost (CPU backend, 1 device each), build a
 global 2-device mesh, and reduce across HOSTS — the jax.distributed
 bring-up that `parallel/multihost.py::initialize` wraps (SURVEY §2.3
-"Elasticity / multi-node"). No TPU pod required."""
+"Elasticity / multi-node"). No multi-machine cluster required."""
 
 import os
 import socket

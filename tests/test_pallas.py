@@ -1,84 +1,19 @@
-"""Pallas fused BLSTM scan vs the pure lax.scan implementation —
-forward values and custom-VJP gradients (interpret mode on CPU)."""
+"""Triton-route Pallas CTC kernel vs the XLA phi/emit scan and the
+NumPy lattice reference — values and custom-VJP gradients, in the
+Pallas interpreter (the compiled kernel runs only on the GPU)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mgr_tpu.ops.lstm as lstm
+from mgr_tpu.ops import ctc as ctc_lib
 from mgr_tpu.ops import pallas_kernels as pk
-
-
-def _case(D=2, B=4, T=12, H=8, seed=0):
-    k1, k2 = jax.random.split(jax.random.key(seed))
-    xp = jax.random.normal(k1, (D, B, T, 4, H), jnp.float32)
-    U = 0.5 * jax.random.normal(k2, (D, H, 4, H), jnp.float32)
-    return xp, U
-
-
-def test_forward_matches_lax_scan():
-    xp, U = _case()
-    want = lstm._recurrent_scan(xp, U, jnp.float32, unroll=1)
-    got = pk.pallas_recurrent_scan(xp, U, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=3e-2, atol=3e-2
-    )
-
-
-def test_forward_matches_with_padding():
-    # H=8 pads to 128 lanes; padded lanes must not leak into real ones.
-    xp, U = _case(H=8, T=7, B=2)
-    want = lstm._recurrent_scan(xp, U, jnp.float32, unroll=1)
-    got = pk.pallas_recurrent_scan(xp, U, interpret=True)
-    assert got.shape == want.shape
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=3e-2, atol=3e-2
-    )
-
-
-def test_gradients_match_autodiff():
-    xp, U = _case(T=6, B=2, H=8, seed=3)
-    tangent = jax.random.normal(jax.random.key(9), xp.shape[:3] + (xp.shape[4],))
-
-    def loss_pure(xp, U):
-        hs = lstm._recurrent_scan(xp, U, jnp.float32, unroll=1)
-        return jnp.sum(hs * tangent)
-
-    def loss_pallas(xp, U):
-        hs = pk.pallas_recurrent_scan(xp, U, interpret=True)
-        return jnp.sum(hs * tangent)
-
-    g_pure = jax.grad(loss_pure, argnums=(0, 1))(xp, U)
-    g_pallas = jax.grad(loss_pallas, argnums=(0, 1))(xp, U)
-    for a, b, name in zip(g_pallas, g_pure, ("dxp", "dU")):
-        a, b = np.asarray(a), np.asarray(b)
-        denom = np.abs(b).max() + 1e-6
-        np.testing.assert_allclose(
-            a / denom, b / denom, atol=5e-2, err_msg=name
-        )
-
-
-def test_bilstm_layer_with_pallas_backend():
-    params = lstm.init_bilstm_params(jax.random.key(0), 5, 8)
-    x = jax.random.normal(jax.random.key(1), (2, 10, 5))
-    want = lstm.bilstm_layer(params, x, compute_dtype=jnp.float32)
-    lstm.use_pallas(True)
-    try:
-        got = lstm.bilstm_layer(params, x, compute_dtype=jnp.float32)
-    finally:
-        lstm.use_pallas(False)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(want), rtol=3e-2, atol=3e-2
-    )
 
 
 # ---------------------------------------------------------------------------
 # Pallas CTC vs the XLA phi/emit scan (values + gradients).
 # ---------------------------------------------------------------------------
-
-from mgr_tpu.ops import ctc as ctc_lib
-
 
 def _ctc_case(seed, B=3, T=14, K=6, N=5):
     rng = np.random.default_rng(seed)
@@ -163,75 +98,85 @@ def test_pallas_ctc_grad_through_logits_chain():
 
 
 # ---------------------------------------------------------------------------
-# Time-major BLSTM path vs the batch-major reference implementation.
+# Against the independent NumPy lattice, across shapes and state widths.
 # ---------------------------------------------------------------------------
 
-def test_tm_kernels_match_batch_major():
-    params = lstm.init_bilstm_params(jax.random.key(30), 5, 8)
-    x = jax.random.normal(jax.random.key(31), (3, 11, 5))  # (B, T, F)
-    want = lstm.bilstm_layer(params, x, compute_dtype=jnp.float32)
-
-    x_tm = jnp.swapaxes(x, 0, 1)
-    # XLA fallback path
-    got_xla = lstm.bilstm_layer_tm(params, x_tm, compute_dtype=jnp.float32)
-    np.testing.assert_allclose(
-        np.asarray(jnp.swapaxes(got_xla, 0, 1)), np.asarray(want),
-        rtol=1e-5, atol=1e-5,
-    )
-    # Pallas interpret path
-    lstm.use_pallas(True)
-    try:
-        got_pal = lstm.bilstm_layer_tm(
-            params, x_tm, compute_dtype=jnp.float32
-        )
-    finally:
-        lstm.use_pallas(False)
-    np.testing.assert_allclose(
-        np.asarray(jnp.swapaxes(got_pal, 0, 1)), np.asarray(want),
-        rtol=3e-2, atol=3e-2,
-    )
+def _labels(rng, B, N, K, lab_len):
+    labels = np.full((B, N), -1, np.int32)
+    for b in range(B):
+        labels[b, :lab_len[b]] = rng.integers(0, K - 1, size=lab_len[b])
+    return labels
 
 
-def test_tm_pallas_gradients_match_xla_fallback():
-    params = lstm.init_bilstm_params(jax.random.key(32), 4, 8)
-    x_tm = jax.random.normal(jax.random.key(33), (9, 2, 4))  # (T, B, F)
-    tang = jax.random.normal(jax.random.key(34), (9, 2, 16))
-
-    def loss(p, use_pallas):
-        lstm.use_pallas(use_pallas)
-        try:
-            out = lstm.bilstm_layer_tm(p, x_tm, compute_dtype=jnp.float32)
-        finally:
-            lstm.use_pallas(False)
-        return jnp.sum(out * tang)
-
-    g_xla = jax.grad(lambda p: loss(p, False))(params)
-    g_pal = jax.grad(lambda p: loss(p, True))(params)
-    for (ka, a), (kb, b) in zip(
-        sorted(g_xla.items()), sorted(g_pal.items())
-    ):
-        a, b = np.asarray(a), np.asarray(b)
-        denom = np.abs(a).max() + 1e-6
-        np.testing.assert_allclose(
-            b / denom, a / denom, atol=5e-2, err_msg=ka
-        )
+# (B, T, K, N, label lengths, input lengths, packed state width)
+_REF_CASES = {
+    "odd_T": (2, 13, 5, 4, [4, 2], [13, 13], 8),
+    "empty_label": (3, 10, 4, 3, [0, 2, 0], [10, 7, 4], 4),
+    "repeats": (2, 16, 4, 5, [5, 3], [16, 16], 8),
+    "short_inputs": (3, 20, 6, 4, [3, 4, 1], [9, 12, 3], 8),
+    "speech_width": (2, 24, 44, 150, [6, 9], [24, 21], 256),
+    "skeletal_width": (2, 30, 22, 28, [12, 5], [30, 17], 32),
+    "fusion_width": (2, 40, 22, 35, [17, 3], [40, 29], 64),
+}
 
 
-def test_tm_input_gradients_match():
-    params = lstm.init_bilstm_params(jax.random.key(35), 3, 8)
-    x_tm = jax.random.normal(jax.random.key(36), (7, 2, 3))
+@pytest.mark.parametrize("case", sorted(_REF_CASES))
+def test_triton_ctc_matches_numpy_reference(case):
+    B, T, K, N, lab_len, in_len, width = _REF_CASES[case]
+    assert pk.state_width(N) == width
+    rng = np.random.default_rng(len(case))
+    lp = np.asarray(jax.nn.log_softmax(
+        jnp.asarray(rng.standard_normal((B, T, K)).astype(np.float32)), -1))
+    labels = _labels(rng, B, N, K, lab_len)
+    if case == "repeats":
+        labels[0, :5] = [1, 1, 2, 2, 2]
+        labels[1, :3] = [2, 0, 2]
+    want = ctc_lib.ctc_loss_reference_batch(lp, labels, np.array(in_len),
+                                            np.array(lab_len))
+    got = pk.pallas_ctc_loss(jnp.asarray(lp), jnp.asarray(labels),
+                             jnp.asarray(in_len), jnp.asarray(lab_len),
+                             interpret=True)
+    assert got.shape == (B,)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-4)
 
-    def loss(x, use_pallas):
-        lstm.use_pallas(use_pallas)
-        try:
-            out = lstm.bilstm_layer_tm(
-                params, x, compute_dtype=jnp.float32
-            )
-        finally:
-            lstm.use_pallas(False)
-        return jnp.sum(out ** 2)
 
-    g_xla = np.asarray(jax.grad(lambda x: loss(x, False))(x_tm))
-    g_pal = np.asarray(jax.grad(lambda x: loss(x, True))(x_tm))
-    denom = np.abs(g_xla).max() + 1e-6
-    np.testing.assert_allclose(g_pal / denom, g_xla / denom, atol=5e-2)
+@pytest.mark.parametrize("layout", ["batch_major", "time_major",
+                                    "logits_chain"])
+def test_triton_ctc_gradients_match_autodiff(layout):
+    """The hand-derived adjoint equals XLA autodiff of the scan, for both
+    input layouts and through log_softmax."""
+    lp, labels, in_len, lab_len = _ctc_case(11, B=3, T=15, K=6, N=4)
+    tm = layout == "time_major"
+    x = jnp.swapaxes(lp, 0, 1) if tm else lp * (2.0 if layout ==
+                                                 "logits_chain" else 1.0)
+
+    def loss(fn):
+        def f(v):
+            if layout == "logits_chain":
+                v = jax.nn.log_softmax(v, axis=-1)
+            return (fn(v) * jnp.arange(1.0, 4.0)).sum()
+        return f
+
+    want = jax.grad(loss(lambda v: ctc_lib.ctc_loss(
+        v, labels, in_len, lab_len, backend="xla", time_major=tm)))(x)
+    got = jax.grad(loss(lambda v: pk.pallas_ctc_loss(
+        v, labels, in_len, lab_len, interpret=True, time_major=tm)))(x)
+    assert got.shape == x.shape
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_triton_ctc_compiled_matches_xla(gpu):
+    """The compiled kernel (no interpreter) on the card at speech widths,
+    held to chip_smoke's tolerances (float64 truth beside both paths)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    out = chip_smoke.check_ctc_kernel(B=8, T=400, K=44, N=150, reps=1)
+    assert out["loss_rel_err"] <= chip_smoke.LOSS_RTOL
+    assert out["grad_err_kernel_vs_f64"] <= out["grad_tol"]

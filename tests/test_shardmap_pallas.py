@@ -1,13 +1,14 @@
-"""Multi-device data parallelism keeps the fused Pallas kernels.
+"""Multi-device data parallelism keeps the CTC kernel per device.
 
-VERDICT r1 item 2: under a pure-DP mesh the train/eval steps are built
-on shard_map, inside which each device traces over its LOCAL batch
-shard — so the fused Pallas BLSTM + CTC kernels stay engaged (interpret
-mode on this CPU backend) instead of silently dropping to the XLA scan
-as plain GSPMD would force. These tests assert (a) the Pallas path is
-actually selected under a dp mesh and NOT under plain jit multi-device,
-and (b) the shard_map'd Pallas step is numerically equal to the
-single-device Pallas step and close to the XLA-scan step.
+Under a pure-DP mesh the train/eval steps are built on shard_map, inside
+which each device traces over its LOCAL batch shard — so the Triton CTC
+kernel stays eligible instead of being a black box over global arrays,
+as plain GSPMD would make it. These tests (kernel in the Pallas
+interpreter on this CPU backend, via the ``triton_interpret`` fixture)
+assert (a) the kernel is actually selected under a dp mesh and NOT
+under plain multi-device jit, and (b) the shard_map'd kernel step is
+numerically equal to the single-device kernel step and close to the
+XLA-scan step.
 """
 
 import jax
@@ -15,7 +16,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mgr_tpu.ops.pallas_kernels as pk
 from mgr_tpu.core import config as cfglib
 from mgr_tpu.core import prng
 from mgr_tpu.models import build_model
@@ -88,28 +88,14 @@ def test_dp_mesh_is_dp_only():
     assert not dp_only(make_mesh(cfglib.MeshConfig(data=4, model=2)))
 
 
-def test_shardmap_step_selects_pallas(monkeypatch):
-    """Under a dp mesh the step must route through the Pallas kernels;
+def test_shardmap_step_selects_pallas(triton_interpret):
+    """Under a dp mesh the step must route through the CTC kernel;
     under plain multi-device jit (no mesh arg) it must NOT."""
-    calls = []
-    real = pk.pallas_bilstm_tm
-
-    def spy(*a, **k):
-        calls.append(1)
-        return real(*a, **k)
-
-    monkeypatch.setattr(pk, "pallas_bilstm_tm", spy)
-    # Pretend the backend is TPU so "auto" mode considers Pallas at all;
-    # execution still runs interpret-mode (we pass no real TPU here).
-    monkeypatch.setattr(dispatch, "_on_tpu", lambda: True)
-    monkeypatch.setattr(
-        pk, "_interpret_default", lambda: True
-    )
-
+    calls = triton_interpret
     cfg = _cfg(batch=2 * N_DEV)
     mesh = _dp_mesh()
     _run_step(cfg, mesh, mode="auto")
-    assert calls, "dp shard_map step did not engage the Pallas kernels"
+    assert calls, "dp shard_map step did not engage the CTC kernel"
 
     calls.clear()
     _run_step(cfg, mesh=None, mode="auto")
@@ -118,9 +104,9 @@ def test_shardmap_step_selects_pallas(monkeypatch):
     )
 
 
-def test_shardmap_pallas_matches_single_device_pallas():
-    """Numerical equality: 8-device shard_map Pallas step vs the
-    single-device Pallas step on the identical global batch. Per-row
+def test_shardmap_pallas_matches_single_device_pallas(triton_interpret):
+    """Numerical equality: 8-device shard_map kernel step vs the
+    single-device kernel step on the identical global batch. Per-row
     kernel math is identical; only the cross-device grad pmean reorders
     float reductions."""
     cfg = _cfg(batch=2 * N_DEV)
@@ -137,16 +123,17 @@ def test_shardmap_pallas_matches_single_device_pallas():
         )
 
 
-def test_shardmap_pallas_close_to_xla_scan():
-    """Cross-backend: the shard_map Pallas step agrees with the XLA-scan
-    step within bf16 kernel tolerance."""
+def test_shardmap_pallas_close_to_xla_scan(triton_interpret):
+    """Cross-backend: the shard_map kernel step agrees with the XLA-scan
+    step."""
     cfg = _cfg(batch=2 * N_DEV)
     loss_pal, _ = _run_step(cfg, _dp_mesh(), mode="pallas")
     loss_xla, _ = _run_step(cfg, _dp_mesh(), mode="xla")
-    np.testing.assert_allclose(loss_pal, loss_xla, rtol=3e-2)
+    assert triton_interpret
+    np.testing.assert_allclose(loss_pal, loss_xla, rtol=1e-5)
 
 
-def test_shardmap_eval_step_matches_single_device():
+def test_shardmap_eval_step_matches_single_device(triton_interpret):
     cfg = _cfg(batch=2 * N_DEV)
     mesh = _dp_mesh()
     model = build_model(cfg)
@@ -168,9 +155,10 @@ def test_shardmap_eval_step_matches_single_device():
     np.testing.assert_allclose(loss_dp, loss_1, rtol=1e-5)
 
 
-def test_fit_on_dp_mesh_uses_shardmap_and_learns(tmp_path):
+def test_fit_on_dp_mesh_uses_shardmap_and_learns(tmp_path,
+                                                triton_interpret):
     """End-to-end: fit() with a dp mesh trains through the shard_map
-    step (Pallas forced, interpret) and the loss decreases."""
+    step (CTC kernel forced, interpreted) and the loss decreases."""
     from mgr_tpu.data import datasets, synthetic
 
     root = tmp_path / "data"
@@ -202,8 +190,7 @@ def test_fit_on_dp_mesh_uses_shardmap_and_learns(tmp_path):
 
 
 def test_decode_step_dp_mesh_matches_single_device():
-    """Fused decode under a pure-DP mesh (shard_map, Pallas interpret)
-    equals the single-device decode bit-for-bit — and the direction-
+    """Fused decode under a pure-DP mesh (shard_map) equals the single-device decode bit-for-bit — and the direction-
     sharded dp x model=2 mesh does too."""
     from mgr_tpu.train.step import make_decode_step
 
@@ -213,7 +200,7 @@ def test_decode_step_dp_mesh_matches_single_device():
     batch = _batch(cfg)
     lengths = jnp.full((cfg.batch_size,), cfg.maxlen - 2, jnp.int32)
 
-    def run(mesh, mode="pallas"):
+    def run(mesh, mode="auto"):
         step = make_decode_step(model, threshold=0.3, trim_frames=2,
                                 mesh=mesh)
         dispatch.set_mode(mode)
@@ -232,7 +219,7 @@ def test_decode_step_dp_mesh_matches_single_device():
 
     # None lengths path under a mesh (synthesized full lengths) must
     # equal the single-device None-lengths decode VALUE-wise, not just
-    # in shape (ADVICE r2): lengths come from the actual time axis.
+    # in shape: lengths come from the actual time axis.
     step_1 = make_decode_step(model, threshold=0.3, trim_frames=2)
     best_1n, emit_1n = step_1(params, batch["inputs"])
     step = make_decode_step(model, threshold=0.3, trim_frames=2,

@@ -1,15 +1,12 @@
-"""Direction-sharded tensor parallelism (round-2 backlog closure).
+"""Direction-sharded tensor parallelism.
 
 A BLSTM's two scan directions are independent serial chains, so a
 size-2 'model' mesh axis can run one direction per device with ZERO
 per-step collectives — the honest TP for a 2-direction RNN (an H-shard
 would psum every one of the T steps). These tests assert:
 
-  (a) the single-direction time-major kernels (pallas_lstm_tm,
-      fwd/reverse variants) match the lax.scan reference in values and
-      gradients, including T not divisible by the chunk sizes (the
-      reverse scan consumes the zero-padded tail FIRST — state must
-      pass through it unchanged);
+  (a) under dp x tp2 each device runs one direction's scan and the CTC
+      kernel stays eligible per device;
   (b) the dp x tp2 shard_map train/eval steps match single-device
       numerics exactly (noise/dropout off);
   (c) the grad-combine rule (psum for direction-scattered blstm leaves,
@@ -23,7 +20,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import mgr_tpu.ops.pallas_kernels as pk
 from mgr_tpu.core import config as cfglib
 from mgr_tpu.core import prng
 from mgr_tpu.models import build_model
@@ -34,82 +30,6 @@ from mgr_tpu.train import create_train_state, make_eval_step, make_train_step
 from mgr_tpu.train.step import _combine_model_grads, _loss_and_grads
 
 N_DEV = 8
-
-
-# ---------------------------------------------------------------------------
-# (a) single-direction kernel vs lax.scan reference
-# ---------------------------------------------------------------------------
-
-def _scan_reference(xp, U, reverse):
-    """xp (T, B, 4, H) f32, U (H, 4, H) -> h (T, B, H), pure lax.scan."""
-    x_in = jnp.flip(xp, axis=0) if reverse else xp
-
-    def step(carry, z):
-        h, c = carry
-        gates = z + jnp.einsum("bh,hgk->bgk", h, U)
-        i = jnp.clip(0.2 * gates[:, 0] + 0.5, 0.0, 1.0)
-        f = jnp.clip(0.2 * gates[:, 1] + 0.5, 0.0, 1.0)
-        g = jnp.tanh(gates[:, 2])
-        o = jnp.clip(0.2 * gates[:, 3] + 0.5, 0.0, 1.0)
-        c_new = f * c + i * g
-        h_new = o * jnp.tanh(c_new)
-        return (h_new, c_new), h_new
-
-    B, H = xp.shape[1], xp.shape[3]
-    init = (jnp.zeros((B, H)), jnp.zeros((B, H)))
-    _, hs = jax.lax.scan(step, init, x_in)
-    return jnp.flip(hs, axis=0) if reverse else hs
-
-
-@pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("T", [8, 13])  # 13: not a chunk multiple
-def test_pallas_lstm_tm_matches_scan(reverse, T):
-    B, H = 4, 8
-    key = jax.random.key(0)
-    k1, k2 = jax.random.split(key)
-    xp = jax.random.normal(k1, (T, B, 4, H), jnp.float32) * 0.5
-    U = jax.random.normal(k2, (H, 4, H), jnp.float32) * 0.3
-
-    hs = pk.pallas_lstm_tm(xp, U, reverse=reverse, interpret=True)
-    ref = _scan_reference(xp, U, reverse)
-    np.testing.assert_allclose(hs, ref, rtol=2e-2, atol=2e-2)
-
-    def loss_pl(xp, U):
-        return jnp.sum(
-            pk.pallas_lstm_tm(xp, U, reverse=reverse, interpret=True) ** 2
-        )
-
-    def loss_ref(xp, U):
-        return jnp.sum(_scan_reference(xp, U, reverse) ** 2)
-
-    g_pl = jax.grad(loss_pl, argnums=(0, 1))(xp, U)
-    g_ref = jax.grad(loss_ref, argnums=(0, 1))(xp, U)
-    for a, b, name in zip(g_pl, g_ref, ("dxp", "dU")):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=5e-2, atol=5e-2,
-            err_msg=name,
-        )
-        corr = np.corrcoef(
-            np.asarray(a).ravel(), np.asarray(b).ravel()
-        )[0, 1]
-        assert corr > 0.999, (name, corr)
-
-
-def test_pallas_lstm_tm_pair_equals_bilstm_tm():
-    """fwd + reverse single-direction kernels == the fused two-direction
-    kernel on the same stacked inputs."""
-    T, B, H = 10, 4, 8
-    key = jax.random.key(1)
-    k1, k2, k3 = jax.random.split(key, 3)
-    xp0 = jax.random.normal(k1, (T, B, 4, H), jnp.float32) * 0.5
-    xp1 = jax.random.normal(k2, (T, B, 4, H), jnp.float32) * 0.5
-    U = jax.random.normal(k3, (2, H, 4, H), jnp.float32) * 0.3
-
-    hs0, hs1 = pk.pallas_bilstm_tm(xp0, xp1, U, interpret=True)
-    one0 = pk.pallas_lstm_tm(xp0, U[0], reverse=False, interpret=True)
-    one1 = pk.pallas_lstm_tm(xp1, U[1], reverse=True, interpret=True)
-    np.testing.assert_allclose(one0, hs0, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(one1, hs1, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +73,8 @@ def _tp_mesh():
 
 
 def _run_step(cfg, mesh, mode):
+    """One train step; mode "pallas" needs the triton_interpret
+    fixture (kernel in the interpreter on this CPU backend)."""
     model = build_model(cfg)
     state = create_train_state(model, prng.root_key(0))
     batch = _batch(cfg)
@@ -171,7 +93,9 @@ def _run_step(cfg, mesh, mode):
 
 
 @pytest.mark.parametrize("mode", ["xla", "pallas"])
-def test_dirsharded_step_matches_single_device(mode):
+def test_dirsharded_step_matches_single_device(mode, request):
+    if mode == "pallas":
+        request.getfixturevalue("triton_interpret")
     cfg = _cfg(batch=2 * N_DEV)
     loss_tp, params_tp = _run_step(cfg, _tp_mesh(), mode=mode)
     loss_1, params_1 = _run_step(cfg, None, mode=mode)
@@ -231,7 +155,7 @@ def test_dirsharded_grads_match_single_device():
         )
 
 
-def test_dirsharded_eval_matches_single_device():
+def test_dirsharded_eval_matches_single_device(triton_interpret):
     cfg = _cfg(batch=2 * N_DEV)
     mesh = _tp_mesh()
     model = build_model(cfg)
@@ -250,28 +174,22 @@ def test_dirsharded_eval_matches_single_device():
     np.testing.assert_allclose(loss_tp, loss_1, rtol=1e-5)
 
 
-def test_dirsharded_routing_uses_single_direction_kernel(monkeypatch):
-    """Under dp x tp2 the step must call pallas_lstm_tm (one direction
-    per device), not the two-direction kernel."""
-    calls = {"one": 0, "two": 0}
-    real_one = pk.pallas_lstm_tm
-    real_two = pk.pallas_bilstm_tm
+def test_dirsharded_routing_uses_single_direction_scan(monkeypatch,
+                                                      triton_interpret):
+    """Under dp x tp2 the step runs the direction-sharded BLSTM (one
+    direction per device) and the CTC kernel per device."""
+    calls = []
+    real = lstm.bilstm_layer_tm_dirsharded
 
-    def spy_one(*a, **k):
-        calls["one"] += 1
-        return real_one(*a, **k)
+    def spy(*a, **k):
+        calls.append(k["axis"])
+        return real(*a, **k)
 
-    def spy_two(*a, **k):
-        calls["two"] += 1
-        return real_two(*a, **k)
-
-    monkeypatch.setattr(pk, "pallas_lstm_tm", spy_one)
-    monkeypatch.setattr(pk, "pallas_bilstm_tm", spy_two)
-
+    monkeypatch.setattr(lstm, "bilstm_layer_tm_dirsharded", spy)
     cfg = _cfg(batch=2 * N_DEV)
-    _run_step(cfg, _tp_mesh(), mode="pallas")
-    assert calls["one"] > 0, "tp mesh did not use single-direction kernels"
-    assert calls["two"] == 0
+    _run_step(cfg, _tp_mesh(), mode="auto")
+    assert calls and set(calls) == {"model"}, calls
+    assert triton_interpret, "the CTC kernel did not run per device"
 
 
 # ---------------------------------------------------------------------------
